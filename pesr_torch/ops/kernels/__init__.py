@@ -1,0 +1,18 @@
+"""Hand-written Hopper kernels (``pesr_torch/csrc``), each with its plain
+PyTorch version beside it and a launch counter on its wrapper."""
+
+from pesr_torch.ops.kernels.resblock import (fused_resblock,  # noqa: F401
+                                             pack_resblock,
+                                             resblock_reference)
+from pesr_torch.ops.kernels.upsampler import (  # noqa: F401
+    fused_upsampler_stage, pack_upsampler_stage, upsampler_stage_reference)
+
+
+def reset_launch_counts() -> None:
+    fused_resblock.launches = 0
+    fused_upsampler_stage.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"fused_resblock": fused_resblock.launches,
+            "fused_upsampler_stage": fused_upsampler_stage.launches}

@@ -1,0 +1,127 @@
+"""Inference entry point of the port (counterpart of the repo's
+``test.py``): loads a generator, upscales every image of an eval set
+through the hand-written kernels, writes PNGs into
+``<output_dir>/<dataset>/`` and prints PSNR/SSIM and throughput.
+
+    python -m pesr_torch.test --dataset synthetic --model_path g.pth \\
+        --num_blocks 8 --num_channels 64
+    python -m pesr_torch.test --dataset synthetic --device cpu ...
+
+Weights: an EDSR-style ``.pth`` (``pesr_tpu.convert.save_generator_torch``
+writes one from a JAX checkpoint), or random init from ``--seed``.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import torch
+
+from pesr_torch.config import Opts, opts_from_args
+from pesr_torch.convert import load_generator_pth
+from pesr_torch.data.datasets import host_bicubic_resize, load_eval_set
+from pesr_torch.metrics import calc_psnr, calc_ssim
+from pesr_torch.models.generator import Generator
+from pesr_torch.models.kernel_apply import KernelApply
+from pesr_torch.ops.tiling import BatchTiledUpscaler, WholeImageUpscaler
+from pesr_torch.utils.device import resolve_device
+from pesr_torch.utils.image_io import imwrite_uint8
+from pesr_torch.utils.logging import AverageMeter
+
+
+def build_generator(opts: Opts, device: torch.device) -> Generator:
+    """The generator of ``opts``, with weights from ``--model_path`` or
+    random init from ``--seed``."""
+    arch = dict(scale=opts.scale, num_blocks=opts.num_blocks,
+                num_channels=opts.num_channels, res_scale=opts.res_scale,
+                device=device)
+    path = opts.model_path
+    if not path:
+        gen = Generator(**arch, seed=opts.seed)
+        print("WARNING: no --model_path; using randomly-initialized "
+              "generator")
+        return gen
+    if os.path.isdir(path) or not path.endswith((".pth", ".pt")):
+        raise SystemExit(
+            f"--model_path {path}: pesr_torch loads torch .pth/.pt files "
+            f"only.  An orbax checkpoint directory needs JAX; convert it "
+            f"once with pesr_tpu.convert.save_generator_torch (CLI: python "
+            f"-m pesr_tpu.convert {path} out.pth --to_torch --scale "
+            f"{opts.scale})")
+    gen = Generator(**arch, seed=None)
+    gen.load_state_dict(load_generator_pth(path, opts.num_blocks, opts.scale),
+                        strict=True)
+    print(f"loaded torch generator from {path}")
+    return gen
+
+
+def run(argv=None) -> dict:
+    """The whole flow of :func:`main`; returns its summary (mean PSNR /
+    SSIM / bicubic PSNR, MP/s, image and generator-forward counts)."""
+    opts = opts_from_args(argv)
+    device = resolve_device(opts.device)
+    apply_fn = KernelApply(build_generator(opts, device))
+    samples = load_eval_set(opts)
+    lrs = [s.lr for s in samples]
+    if opts.tile_size == 0:
+        engine = WholeImageUpscaler(apply_fn, opts.scale, device)
+        engine.warmup_many(lrs)
+        run_all = lambda: engine.upscale_many(lrs)  # noqa: E731
+        print("whole-image mode (no tiling)")
+    else:
+        engine = BatchTiledUpscaler(apply_fn, opts.scale, opts.tile_size,
+                                    opts.tile_overlap, device=device)
+        engine.warmup_many(lrs, opts.infer_batch)
+        run_all = lambda: engine.upscale_many(  # noqa: E731
+            lrs, opts.infer_batch)
+        print(f"device-resident tiled mode (tile={opts.tile_size}, "
+              f"overlap={opts.tile_overlap})")
+
+    t0 = time.perf_counter()
+    srs = run_all()  # numpy results: the device work has finished
+    elapsed = time.perf_counter() - t0
+
+    out_dir = os.path.join(opts.output_dir, opts.test_dataset)
+    psnr_m, ssim_m, bicubic_m = AverageMeter(), AverageMeter(), AverageMeter()
+    total_mp = 0.0
+    for s, sr in zip(samples, srs):
+        imwrite_uint8(os.path.join(out_dir, f"{s.name}.png"), sr)
+        total_mp += sr.shape[0] * sr.shape[1] / 1e6
+        if s.hr is not None:
+            psnr = calc_psnr(sr, s.hr, crop_border=opts.scale)
+            ssim = calc_ssim(sr, s.hr, crop_border=opts.scale)
+            h, w = s.lr.shape[:2]
+            bic = host_bicubic_resize(s.lr, h * opts.scale, w * opts.scale)
+            bpsnr = calc_psnr(bic, s.hr, crop_border=opts.scale)
+            psnr_m.update(psnr)
+            ssim_m.update(ssim)
+            bicubic_m.update(bpsnr)
+            print(f"{s.name}: PSNR {psnr:.2f} dB  SSIM {ssim:.4f}  "
+                  f"(bicubic {bpsnr:.2f} dB)")
+
+    where = (torch.cuda.get_device_name(device) if device.type == "cuda"
+             else "cpu")
+    quality = (f"mean PSNR {psnr_m.avg:.2f} dB  mean SSIM "
+               f"{ssim_m.avg:.4f}  bicubic {bicubic_m.avg:.2f} dB"
+               if psnr_m.count else "no ground truth")
+    mp_s = total_mp / elapsed
+    print(f"[{opts.test_dataset} x{opts.scale}] {quality}  ({mp_s:.2f} MP/s "
+          f"on {where} over {len(samples)} images, post-warmup, incl. "
+          f"host transfers)")
+    print(f"SR images written to {out_dir}/")
+    return {"psnr": psnr_m.avg if psnr_m.count else None,
+            "ssim": ssim_m.avg if ssim_m.count else None,
+            "bicubic_psnr": bicubic_m.avg if bicubic_m.count else None,
+            "mp_per_s": mp_s, "images": len(samples),
+            "forwards": apply_fn.forwards, "out_dir": out_dir}
+
+
+def main(argv=None) -> int:
+    run(argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

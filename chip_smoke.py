@@ -6,13 +6,19 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. build   -- compile every CUDA kernel of ``pesr_torch/csrc`` with nvcc
-              (set-up), print the card's name and power limit.
+              (set-up), print ptxas' registers / spills and the SASS
+              evidence (counts of HGMMA, TMA and SYNCS instructions from
+              cuobjdump; a library without HGMMA or TMA loads fails, and
+              so does one whose wgmma ptxas serialized), print the
+              card's name and power limit.
 2. kernels -- each kernel against its plain PyTorch version (f32, TF32
-              off, same bf16-rounded inputs): small ragged shapes, then
-              the shapes the main path gives it (C = 256, the tile batch
-              the engine's auto chooser picks for two 510 x 336 LR
-              images).  Times (CUDA events) of kernel, plain version and
-              a library yardstick, and the data-sheet bound.
+              off, same bf16-rounded inputs): ragged shapes at the edges
+              of the kernels' decompositions, C = 64, 128, 256, then the
+              shapes the main path gives it (C = 256, the tile batch the
+              engine's auto chooser picks for two 510 x 336 LR images).
+              Times (CUDA events; median, min and max of repetitions) of
+              kernel, plain version and a library yardstick, and the
+              data-sheet bound.
 3. main    -- x4 32 x 256 inference through ``pesr_torch.test`` on
               ``synthetic``, then two 510 x 336 LR images through
               ``BatchTiledUpscaler`` with PNG output: launch counts per
@@ -49,6 +55,8 @@ ATOL, RTOL = 1e-2, 2.0 ** -7
 # 32 x 256 weights: ~36 bf16 roundings of O(1) activations on the way to
 # [-1, 1] (127.5 LSB per unit).  Allowed: mean <= 0.5 LSB, max <= 8 LSB.
 LSB_MEAN_TOL, LSB_MAX_TOL = 0.5, 8
+# Ragged (batch, H, W) at the edges of the kernels' decompositions.
+RAGGED = ((1, 5, 3), (1, 1, 1), (1, 9, 63), (2, 49, 510), (3, 5, 1426))
 
 
 def fail(msg: str) -> None:
@@ -64,19 +72,25 @@ def gpu_name_power() -> str:
     return out.stdout.strip()
 
 
-def timed_ms(fn, iters: int, warmup: int = 2) -> float:
+def timed_ms(fn, iters: int, reps: int = 7, warmup: int = 2) -> dict:
+    """ms per call: ``reps`` timed repetitions of ``iters`` calls each
+    (CUDA events); their median, min and max."""
     import torch
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    times.sort()
+    return {"ms": times[len(times) // 2], "min": times[0], "max": times[-1]}
 
 
 def bound(flops: float, nbytes: float):
@@ -119,10 +133,15 @@ def make_inputs(shape_x, shapes_w, seed: int):
 def check_resblock(bsz, h, w, c, res_scale, seed, timing=False) -> dict:
     import torch
     import torch.nn.functional as F
-    from pesr_torch.ops.kernels import fused_resblock, resblock_reference
+    from pesr_torch.ops.kernels import (fused_resblock, pack_resblock,
+                                        resblock_reference)
+    from pesr_torch.ops.kernels.resblock import (CLUSTER, _max_clusters,
+                                                 resblock_schedule)
     x, (w1, b1, w2, b2) = make_inputs(
         (bsz, h, w, c), [(3, 3, c, c), (c,), (3, 3, c, c), (c,)], seed)
-    out = fused_resblock(x, w1, b1, w2, b2, res_scale)
+    packed = pack_resblock(w1.permute(3, 2, 0, 1), b1,
+                           w2.permute(3, 2, 0, 1), b2)
+    out = fused_resblock(x, *packed, res_scale=res_scale)
     torch.cuda.synchronize()
     ref = resblock_reference(x.float(), w1.float(), b1, w2.float(), b2,
                              res_scale)
@@ -143,14 +162,22 @@ def check_resblock(bsz, h, w, c, res_scale, seed, timing=False) -> dict:
         y = F.relu(F.conv2d(xl, w1l, b1h, padding=1))
         return xl + res_scale * F.conv2d(y, w2l, b2h, padding=1)
 
-    res["ms"] = timed_ms(lambda: fused_resblock(x, w1, b1, w2, b2,
-                                                res_scale), 10)
-    res["plain_ms"] = timed_ms(lambda: resblock_reference(
-        xf, w1f, b1, w2f, b2, res_scale), 3, 1)
-    res["library_ms"] = timed_ms(library, 10)
+    res["time"] = timed_ms(lambda: fused_resblock(x, *packed,
+                                                  res_scale=res_scale), 10)
+    res["plain"] = timed_ms(lambda: resblock_reference(
+        xf, w1f, b1, w2f, b2, res_scale), 1, 5, 1)
+    res["library"] = timed_ms(library, 10, 5)
+    res["ms"], res["plain_ms"], res["library_ms"] = (
+        res[k]["ms"] for k in ("time", "plain", "library"))
     px = bsz * h * w
     res["bound_ms"], res["bound_by"] = bound(
         4 * 9 * c * c * px, 2 * px * c * 2 + 2 * 9 * c * c * 2 + 2 * c * 4)
+    # Weight bytes L2 serves per launch: every cluster streams both convs'
+    # weights once per conv pass (rows / 2 + 1 conv1 + rows / 2 conv2).
+    sched = resblock_schedule(bsz, h, w, _max_clusters(c, x.device))
+    res["schedule"] = sched
+    res["weight_l2_bytes"] = (sched.ctas // CLUSTER * (sched.rows + 1)
+                              * 9 * c * c * 2)
     return res
 
 
@@ -160,6 +187,8 @@ def check_upsampler(bsz, h, w, c, seed, timing=False) -> dict:
     from pesr_torch.ops.kernels import (fused_upsampler_stage,
                                         pack_upsampler_stage,
                                         upsampler_stage_reference)
+    from pesr_torch.ops.kernels.upsampler import (_max_clusters,
+                                                  upsampler_schedule)
     x, (wt, b) = make_inputs((bsz, h, w, c), [(3, 3, c, 4 * c), (4 * c,)],
                              seed)
     wp, bp = pack_upsampler_stage(wt, b)
@@ -174,16 +203,40 @@ def check_upsampler(bsz, h, w, c, seed, timing=False) -> dict:
     xl = x.permute(0, 3, 1, 2)
     wl = wt.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     bh = b.to(torch.bfloat16)
-    res["ms"] = timed_ms(lambda: fused_upsampler_stage(x, wp, bp), 10)
-    res["plain_ms"] = timed_ms(lambda: upsampler_stage_reference(xf, wf, b),
-                               3, 1)
-    res["library_ms"] = timed_ms(
-        lambda: F.pixel_shuffle(F.conv2d(xl, wl, bh, padding=1), 2), 10)
+    res["time"] = timed_ms(lambda: fused_upsampler_stage(x, wp, bp), 10)
+    res["plain"] = timed_ms(lambda: upsampler_stage_reference(xf, wf, b),
+                            1, 5, 1)
+    res["library"] = timed_ms(
+        lambda: F.pixel_shuffle(F.conv2d(xl, wl, bh, padding=1), 2), 10, 5)
+    res["ms"], res["plain_ms"], res["library_ms"] = (
+        res[k]["ms"] for k in ("time", "plain", "library"))
     px = bsz * h * w
     res["bound_ms"], res["bound_by"] = bound(
         2 * 9 * c * 4 * c * px,
         px * c * 2 + 4 * px * c * 2 + 9 * c * 4 * c * 2 + 4 * c * 4)
+    # Weight bytes L2 serves per launch: one 256-column slice (9 x C x 256
+    # bf16) per cluster tile.
+    sched = upsampler_schedule(bsz, h, w, c, _max_clusters(x.device))
+    res["schedule"] = sched
+    res["weight_l2_bytes"] = sched.tiles * 9 * c * 256 * 2
     return res
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "UBLKCP", "SYNCS")
+
+
+def sass_counts(lib) -> dict:
+    """Instruction counts of a kernel library's SASS (cuobjdump, from the
+    toolkit of the nvcc that built it): each opcode of SASS_OPS counted
+    at the start of an instruction's text."""
+    import re
+    from pesr_torch.ops.kernels import build
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(lib)], check=True,
+                          capture_output=True, text=True,
+                          timeout=120).stdout
+    return {op: len(re.findall(rf"\b{op}(\.|\s)", sass))
+            for op in SASS_OPS}
 
 
 def phase_build() -> str:
@@ -193,6 +246,19 @@ def phase_build() -> str:
     print(f"[build] {len(libs)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s: "
           f"{', '.join(str(p) for p in libs.values())}", flush=True)
+    for name, lib in libs.items():
+        counts = sass_counts(lib)
+        serial = build.LOGS.get(name, "").count("C7512")
+        print(f"[build] SASS of lib{name}.so: {counts}; kernels whose wgmma "
+              f"ptxas serialized (C7512): {serial}", flush=True)
+        if counts["HGMMA"] == 0 or counts["UTMALDG"] == 0:
+            fail(f"lib{name}.so has no wgmma (HGMMA) or no TMA load "
+                 f"(UTMALDG) in its SASS")
+        # ptxas serializes wgmma when the consumers run out of registers:
+        # the kernels still agree, but lose their asynchronous mainloop.
+        if serial:
+            fail(f"ptxas serialized the wgmma of {serial} kernel(s) of "
+                 f"lib{name}.so (C7512)")
     return gpu_name_power()
 
 
@@ -211,12 +277,28 @@ def phase_kernels(card: str) -> dict:
     import torch
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    from pesr_torch.ops.kernels.resblock import resblock_schedule
     print("[kernels] small ragged shapes (edges, partial tiles, all widths)")
     for c in (64, 128, 256):
         check_resblock(2, 19, 23, c, 1.0, seed=c)
         check_resblock(1, 7, 5, c, 0.1, seed=c + 1)
         check_upsampler(2, 11, 29, c, seed=c + 2)
         check_upsampler(1, 3, 5, c, seed=c + 3)
+    # Edges of the decompositions: narrower than a strip / tile, a width
+    # one past a multiple of the resblock's 62-column strip and of the
+    # upsampler's 64-pixel segment, a height one row past a resblock
+    # segment (49 = 6 x 8 + 1), a height shorter than one segment with a
+    # batch of 3.
+    print("[kernels] ragged shapes at the edges of the decompositions")
+    for bsz, h, w in RAGGED:
+        print(f"  resblock schedule of [{bsz},{h},{w}]: "
+              f"{resblock_schedule(bsz, h, w)}", flush=True)
+    for c in (64, 128, 256):
+        for i, (bsz, h, w) in enumerate(RAGGED):
+            for rs in (0.1, 1.0):
+                check_resblock(bsz, h, w, c, rs, seed=100 * c + i)
+            check_upsampler(bsz, h, w, c, seed=100 * c + 50 + i)
+        check_upsampler(1, 9, 65, c, seed=100 * c + 99)
     (b, th, tw), grid = main_path_tile_batch()
     print(f"[kernels] main-path shapes: tile batch [{b},{th},{tw}] "
           f"(grid nh,nw,th,tw = {grid}), C = {CHANNELS}, on {card}",
@@ -228,10 +310,15 @@ def phase_kernels(card: str) -> dict:
     for name, r in (("fused_resblock", rb),
                     ("fused_upsampler_stage (stage 1)", up1),
                     ("fused_upsampler_stage (stage 2)", up2)):
-        print(f"  {name}: kernel {r['ms']:.3f} ms  plain f32 "
-              f"{r['plain_ms']:.3f} ms  library {r['library_ms']:.3f} ms  "
-              f"bound {r['bound_ms']:.3f} ms ({r['bound_by']})  [{card}]",
-              flush=True)
+        spread = "  ".join(
+            f"{k} {r[k]['ms']:.3f} ms [min {r[k]['min']:.3f}, max "
+            f"{r[k]['max']:.3f}]" for k in ("time", "plain", "library"))
+        print(f"  {name}: kernel {spread}  bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}); 'time' is the kernel, 'plain' the f32 "
+              f"plain version, 'library' cuDNN  [{card}]", flush=True)
+        gb = r["weight_l2_bytes"] / 1e9
+        print(f"    {r['schedule']}: weights from L2 {gb:.2f} GB per launch "
+              f"= {gb / r['ms']:.2f} TB/s at the median time", flush=True)
     torch.cuda.empty_cache()
     return {"fused_resblock": rb, "fused_upsampler_stage": up2,
             "upsampler_stage1": up1}
@@ -256,9 +343,11 @@ def profile_breakdown(fn, card: str, top: int = 8) -> None:
                 or getattr(e, "self_cuda_time_total", 0) or 0)
 
     # Device-side entries only (kernels, memcpy): an aten:: op's self
-    # device time repeats the kernels it launched.
+    # device time repeats the kernels it launched, and a CUDA runtime
+    # call's (cudaLaunchKernel, cudaMemcpyAsync) the work it enqueued.
     events = sorted((e for e in prof.key_averages()
-                     if dev_us(e) > 0 and not e.key.startswith("aten::")),
+                     if dev_us(e) > 0 and not e.key.startswith("aten::")
+                     and not e.key.startswith("cuda")),
                     key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in events)
     print(f"  profile of one batch on {card}: wall {wall_us / 1e3:.2f} ms "

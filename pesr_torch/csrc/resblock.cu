@@ -5,28 +5,37 @@
 // Replaces the TPU kernel pesr_tpu/ops/pallas/resblock.py
 // (_resblock_kernel / _resblock_pallas_forward, reached through
 // fused_resblock).  As there, the hidden activation never reaches device
-// memory: one block computes a TH x TW output tile from a (TH+4) x (TW+4)
-// input window and a (TH+2) x (TW+2) hidden tile, both in shared memory.
+// memory: it lives in a ring of four hidden rows in shared memory.
 //
-// What bounds it on the H100: the tensor cores.  At C = 256 a block does
-// 2 x 9 x 256 x 256 MACs per pixel for ~1 KB of activation traffic per
-// pixel, far above the card's ~295 FLOP/byte balance point.  The limits
-// of this first design are the 1.6x halo + virtual-column recompute of a
-// tile small enough for shared memory, one block per SM, and the wmma
-// (mma.sync) path, which cannot reach the wgmma rate.
+// What bounds it on the H100: the tensor cores (2 x 9 x C x C MACs per
+// pixel for ~1 KB of activation traffic), and behind them the L2 traffic
+// of the weights (2 x 9 x C x C x 2 B per block step), which no tile that
+// fits in shared memory can amortise over many pixels.  The design:
 //
-// Tile choice.  At C = 256 one pixel is 512 B (+32 B of bank padding in
-// smem).  TH x TW = 6 x 12 makes the input window 10 x 16 pixels, so its
-// width is exactly the kRowPx = 16 virtual row of conv3x3_tile.cuh:
-//   input window  (10 x 16 + 16 pad) px x 544 B = 95,744 B
-//   hidden tile   ( 8 x 16 + 16 pad) px x 544 B = 78,336 B
-//   weight stages  2 x 32 x 544 B               = 34,816 B
-//   f32 staging    8 warps x 1 KB               =  8,192 B
-//   total                                       = 217,088 B of the 232,448
-// conv1 computes 8 x 16 = 128 virtual rows (80 real hidden pixels), conv2
-// 6 x 16 = 96 (72 real outputs).  The TPU's 36 x 36 tile would need a
-// 739 KB hidden tile alone.  The weights (1.18 MB per conv) do not fit
-// and stream from L2 per tap and 32-channel chunk.
+//   * a CTA owns a strip segment: 62 output columns x `rows` output rows
+//     of one image, and walks down it as a line buffer.  Each step runs
+//     conv1 on two 64-pixel hidden rows (M = 128: one row per consumer
+//     warpgroup) into the hidden ring, then conv2 on two 64-pixel output
+//     rows (62 real) from the four newest hidden rows.  The vertical halo
+//     is recomputed once per segment (2 hidden rows per `rows`), the
+//     horizontal one costs 2 of 64 columns: ~1.04x x ~1.03x the useful
+//     FLOPs per strip, 1.15x at the main path's [2, 336, 510] (9 strips
+//     of 62 cover 510 columns), against 1.56x for 16-wide virtual rows;
+//   * conv1's input streams in 32-channel chunks of 4 rows x 66 pixels
+//     (TMA, zero fill = SAME padding); conv2 reads the hidden ring;
+//     the residual comes from global memory in the epilogue;
+//   * the weights stream through the 4-stage TMA ring of
+//     conv3x3_tile.cuh, multicast across a cluster of 2 CTAs on
+//     neighbouring strips: L2 serves each weight byte once per 2 x 124
+//     output pixels of a step;
+//   * the schedule (rows per segment, strips, segments) comes from the
+//     wrapper (pesr_torch/ops/kernels/resblock.py,
+//     resblock_schedule), sized so that the main path's tile batch fills
+//     one wave.
+//
+// Shared memory at C = 256: hidden ring 4 x 64 px x 512 B = 131,072 B,
+// weight ring 4 x 256 x 64 B = 65,536 B, window ring 2 x 16,896 B,
+// barriers: 230,496 B of the 232,448.
 //
 // Rounding matches the TPU kernel: bias added in f32, the hidden rounded
 // to bf16 before conv2 (resblock.py:65), the residual added in f32 before
@@ -39,138 +48,217 @@
 namespace pesr {
 namespace {
 
-constexpr int TH = 6;
-constexpr int TW = 12;
-static_assert(TW + 4 == kRowPx, "input window must be one virtual row wide");
-constexpr int IN_ROWS = TH + 4;
-constexpr int HID_ROWS = TH + 2;
-constexpr int M1 = HID_ROWS * kRowPx;  // conv1 virtual rows
-constexpr int M2 = TH * kRowPx;        // conv2 virtual rows
-constexpr int MT1 = M1 / (16 * kWarpsM);
-constexpr int MT2 = M2 / (16 * kWarpsM);
-static_assert(MT1 * 16 * kWarpsM == M1 && MT2 * 16 * kWarpsM == M2, "row split");
-// A tap reads up to 2 * kRowPx + 2 rows past the virtual row it computes.
-constexpr int IN_PIX = IN_ROWS * kRowPx + 16;
-constexpr int HID_PIX = M1 + 16;
-static_assert(M1 - 1 + 2 * kRowPx + 2 < IN_PIX, "conv1 reads inside the window");
-static_assert(M2 - 1 + 2 * kRowPx + 2 < HID_PIX, "conv2 reads inside the hidden tile");
+constexpr int kHidW = 64;              // hidden row width (one m64 tile)
+constexpr int kStripOut = kHidW - 2;   // output columns per strip
 
 template <int C>
-constexpr size_t smem_bytes() {
-  return (static_cast<size_t>(IN_PIX + HID_PIX) * smem_ld(C) + 2 * kKChunk * smem_ld(C)) * 2 +
-         kWarps * 256 * sizeof(float);
+struct Layout {
+  static constexpr int kPix = C * 2;  // bytes of one hidden pixel
+  static constexpr int kHidden = 4 * kHidW * kPix;
+  static constexpr int kWRing = kWStages * C * kChunkBytes;
+  static constexpr int kWRingOff = kHidden;
+  static constexpr int kWinOff = kWRingOff + kWRing;
+  static constexpr int kPipesOff = kWinOff + 2 * kWinBytes;
+  static constexpr int kBytes = kPipesOff + sizeof(Pipes<kWStages>);
+  static_assert(kWRingOff % 1024 == 0 && kWinOff % 512 == 0, "swizzle alignment");
+  static_assert(kBytes <= kMaxSmem, "shared memory");
+};
+
+// Hidden ring: pixel q of hidden row k sits at ((k & 3) * 64 + q) * 2C
+// bytes, its 16-byte chunk c at chunk c ^ (q & 7) (bank-conflict-free
+// for ldmatrix and for the epilogue's stores).
+template <int C>
+__device__ __forceinline__ uint32_t hidden_addr(uint32_t hid, int k, int q, int c) {
+  return hid + ((k & 3) * kHidW + q) * Layout<C>::kPix + ((c ^ (q & 7)) << 4);
 }
+
+// conv2's A address at step s: the warpgroup's output pixel p reads
+// hidden row 2s - 2 + wg + dy, column p + dx (clamped for the two
+// columns past the strip, whose outputs are dropped).
+template <int C>
+struct HiddenA {
+  uint32_t hid;
+  int wg, p, kh, s;
+  __device__ __forceinline__ uint32_t operator()(int, int kc, int dy, int dx, int k16) const {
+    return hidden_addr<C>(hid, 2 * s - 2 + wg + dy, min(p + dx, kHidW - 1),
+                          kc * 4 + 2 * k16 + kh);
+  }
+};
 
 template <int C>
 __global__ void __launch_bounds__(kThreads, 1)
-    resblock_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                    const float* __restrict__ b1, const bf16* __restrict__ w2,
-                    const float* __restrict__ b2, bf16* __restrict__ out, int H, int W,
-                    float res_scale) {
-  constexpr int LD = smem_ld(C);
-  constexpr int NT = C / (16 * kWarpsN);
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* in_s = reinterpret_cast<bf16*>(smem);
-  bf16* hid_s = in_s + IN_PIX * LD;
-  bf16* b_s = hid_s + HID_PIX * LD;
-  float* st = reinterpret_cast<float*>(b_s + 2 * kKChunk * LD) + (threadIdx.x / 32) * 256;
+    resblock_kernel(const __grid_constant__ CUtensorMap xmap,
+                    const __grid_constant__ CUtensorMap w1map,
+                    const __grid_constant__ CUtensorMap w2map, const bf16* __restrict__ x,
+                    const float* __restrict__ b1, const float* __restrict__ b2,
+                    bf16* __restrict__ out, int B, int H, int W, float res_scale, int rows,
+                    int strips, int segs) {
+  using L = Layout<C>;
+  constexpr int KC = C / kKChunk;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  auto& pipes = *reinterpret_cast<Pipes<kWStages>*>(smem + L::kPipesOff);
+  const uint32_t rank = cluster_rank();
 
-  const int b = blockIdx.z;
-  const int ty0 = blockIdx.y * TH, tx0 = blockIdx.x * TW;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
-  const int wm = warp / kWarpsN, wn = warp % kWarpsN;
-  const int row = lane >> 1, col = (lane & 1) * 8;
+  // Work item: strip segment of image b (b >= B: a CTA that pads the
+  // item count to a multiple of kCluster; it loads zeros and stores
+  // nothing).
+  const int item = blockIdx.x;
+  const int b = item / (strips * segs);
+  const int r = item % (strips * segs);
+  const int y0 = (r / strips) * rows, x0 = (r % strips) * kStripOut;
+  const int steps = rows / 2;
 
-  load_window<C>(in_s, x, b, H, W, ty0 - 2, tx0 - 2, IN_ROWS, IN_PIX - IN_ROWS * kRowPx);
-  for (int i = threadIdx.x; i < (HID_PIX - M1) * (C / 8); i += kThreads)
-    *reinterpret_cast<uint4*>(hid_s + (M1 + i / (C / 8)) * LD + (i % (C / 8)) * 8) =
-        make_uint4(0u, 0u, 0u, 0u);
-
-  // conv1 + b1, ReLU, ring mask, bf16 -> hidden tile.
-  {
-    FragC acc[MT1][NT];
-    conv3x3_mma<C, MT1, NT>(acc, in_s, w1, C, 0, b_s);
-#pragma unroll
-    for (int mi = 0; mi < MT1; ++mi) {
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        const float* v = stage_fragment(acc[mi][ni], st);
-        const int q = (wm * MT1 + mi) * 16 + row;
-        const int n = (wn * NT + ni) * 16 + col;
-        const int hy = q / kRowPx, hx = q % kRowPx;
-        const int gy = ty0 - 1 + hy, gx = tx0 - 1 + hx;
-        const bool inside = hx < TW + 2 && gy >= 0 && gy < H && gx >= 0 && gx < W;
-        float h[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) h[j] = inside ? fmaxf(v[j] + b1[n + j], 0.0f) : 0.0f;
-        *reinterpret_cast<uint4*>(hid_s + q * LD + n) = pack8(h);
-        __syncwarp();
-      }
-    }
+  if (threadIdx.x == 0) {
+    if (smem_u32(smem) & 1023) __trap();
+    init_pipes(pipes);
   }
+  __syncthreads();
+  cluster_sync();
 
-  // conv2 + b2, scaled residual in f32, one bf16 rounding -> out.
-  {
-    FragC acc[MT2][NT];
-    conv3x3_mma<C, MT2, NT>(acc, hid_s, w2, C, 0, b_s);
-#pragma unroll
-    for (int mi = 0; mi < MT2; ++mi) {
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        const float* v = stage_fragment(acc[mi][ni], st);
-        const int r = (wm * MT2 + mi) * 16 + row;
-        const int n = (wn * NT + ni) * 16 + col;
-        const int oy = r / kRowPx, ox = r % kRowPx;
-        const int gy = ty0 + oy, gx = tx0 + ox;
-        if (ox < TW && gy < H && gx < W) {
-          float core[8], o[8];
-          unpack8(*reinterpret_cast<const uint4*>(in_s + ((oy + 2) * kRowPx + ox + 2) * LD + n),
-                  core);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) o[j] = core[j] + res_scale * (v[j] + b2[n + j]);
-          *reinterpret_cast<uint4*>(out + ((static_cast<int64_t>(b) * H + gy) * W + gx) * C + n) =
-              pack8(o);
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == kConsumers) {
+      RingPos wpos, ipos;
+      for (int s = 0; s <= steps; ++s) {
+        for (int kc = 0; kc < KC; ++kc) {
+          produce_window(pipes, smem + L::kWinOff, ipos, &xmap, kc, x0 - 2, y0 - 2 + 2 * s, b);
+          for (int tap = 0; tap < 9; ++tap)
+            produce_weights<C>(pipes, smem + L::kWRingOff, wpos, &w1map, kc, 0, tap, rank);
         }
-        __syncwarp();
+        if (s > 0)
+          for (int kc = 0; kc < KC; ++kc)
+            for (int tap = 0; tap < 9; ++tap)
+              produce_weights<C>(pipes, smem + L::kWRingOff, wpos, &w2map, kc, 0, tap, rank);
       }
     }
+    __syncwarp();
+    cluster_sync();
+  } else {
+    // ---- two consumer warpgroups: conv1 -> hidden ring -> conv2 ----
+    setmaxnreg_inc<232>();
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    const uint32_t hid = smem_u32(smem), wring = smem_u32(smem + L::kWRingOff);
+    const WindowA wa{smem_u32(smem + L::kWinOff), wg, lane_row(), lane_khalf()};
+    RingPos wpos, ipos;
+    float acc[C / 2];
+    for (int s = 0; s <= steps; ++s) {
+      // conv1 on hidden row k = 2s + wg (image row y0 - 1 + k).
+      conv3x3_wgmma<C, KC, kWStages, true>(acc, pipes, wring, wpos, ipos, wa);
+      if (s > 0) named_barrier(1, kConsumers);  // conv2 of step s-1 is done with the ring
+      {
+        const int k = 2 * s + wg, gy = y0 - 1 + k;
+        const bool row_in = gy >= 0 && gy < H;
+#pragma unroll
+        for (int j = 0; j < C / 8; ++j) {
+          const int n = 8 * j + 2 * (lane & 3);
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(b1 + n));
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            const int p = warp * 16 + (lane >> 2) + 8 * v;
+            const int gx = x0 - 1 + p;
+            const bool in = row_in && gx >= 0 && gx < W;
+            const float h0 = in ? fmaxf(acc[4 * j + 2 * v] + bb.x, 0.0f) : 0.0f;
+            const float h1 = in ? fmaxf(acc[4 * j + 2 * v + 1] + bb.y, 0.0f) : 0.0f;
+            const uint32_t a = hidden_addr<C>(hid, k, p, j) + 4 * (lane & 3);
+            asm volatile("st.shared.b32 [%0], %1;" ::"r"(a), "r"(pack_bf16x2(h0, h1))
+                         : "memory");
+          }
+        }
+      }
+      named_barrier(2, kConsumers);  // the hidden rows of step s are written
+      if (s == 0) continue;
+      // conv2 on output row o = y0 + 2s - 2 + wg.
+      conv3x3_wgmma<C, KC, kWStages, false>(
+          acc, pipes, wring, wpos, ipos, HiddenA<C>{hid, wg, lane_row(), lane_khalf(), s});
+      const int o = y0 + 2 * s - 2 + wg;
+      if (b < B && o < H) {
+#pragma unroll
+        for (int j = 0; j < C / 8; ++j) {
+          const int n = 8 * j + 2 * (lane & 3);
+          const float2 bb = __ldg(reinterpret_cast<const float2*>(b2 + n));
+#pragma unroll
+          for (int v = 0; v < 2; ++v) {
+            const int p = warp * 16 + (lane >> 2) + 8 * v;
+            const int gx = x0 + p;
+            if (p < kStripOut && gx < W) {
+              const int64_t idx = ((static_cast<int64_t>(b) * H + o) * W + gx) * C + n;
+              const float2 res =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + idx));
+              const float o0 = res.x + res_scale * (acc[4 * j + 2 * v] + bb.x);
+              const float o1 = res.y + res_scale * (acc[4 * j + 2 * v + 1] + bb.y);
+              *reinterpret_cast<uint32_t*>(out + idx) = pack_bf16x2(o0, o1);
+            }
+          }
+        }
+      }
+    }
+    cluster_sync();
   }
 }
 
 template <int C>
 int launch(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
-           void* out, int batch, int H, int W, float res_scale, cudaStream_t stream) {
-  const size_t bytes = smem_bytes<C>();
-  cudaError_t err = cudaFuncSetAttribute(resblock_kernel<C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, batch);
-  resblock_kernel<C><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-      static_cast<const bf16*>(w2), static_cast<const float*>(b2), static_cast<bf16*>(out), H,
-      W, res_scale);
-  return static_cast<int>(cudaGetLastError());
+           void* out, int B, int H, int W, float res_scale, int rows, int strips, int segs,
+           int ctas, cudaStream_t stream) {
+  CUtensorMap xm, w1m, w2m;
+  if (!make_window_map(&xm, x, B, H, W, C) || !make_weight_map(&w1m, w1, C, C, C / kCluster) ||
+      !make_weight_map(&w2m, w2, C, C, C / kCluster))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_clusters(
+      resblock_kernel<C>, ctas, Layout<C>::kBytes, stream, xm, w1m, w2m,
+      static_cast<const bf16*>(x), static_cast<const float*>(b1), static_cast<const float*>(b2),
+      static_cast<bf16*>(out), B, H, W, res_scale, rows, strips, segs));
+}
+
+template <int C>
+int max_clusters() {
+  return max_active_clusters(resblock_kernel<C>, Layout<C>::kBytes);
 }
 
 }  // namespace
 }  // namespace pesr
 
-// x, out: [batch, H, W, C] bf16 NHWC (out must not alias x); w1, w2:
-// [3, 3, C, C] bf16 HWIO; b1, b2: [C] f32.  Returns the CUDA error code of
+// x, out: [batch, H, W, C] bf16 NHWC, 16-byte aligned (out must not alias
+// x); w1, w2: [3, 3, C, C] bf16 packed as [tap][output][input]; b1, b2:
+// [C] f32.  rows / strips / segs / ctas: the schedule of
+// resblock_schedule (rows even; ctas a multiple of the cluster size 2 and
+// >= batch * strips * segs).  Returns the CUDA error code of
 // the launch (0 = launched).  C must be 64, 128 or 256.
 extern "C" int pesr_fused_resblock(const void* x, const void* w1, const void* b1,
                                    const void* w2, const void* b2, void* out, int batch,
-                                   int H, int W, int C, float res_scale, void* stream) {
+                                   int H, int W, int C, float res_scale, int rows, int strips,
+                                   int segs, int ctas, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows < 2 || rows % 2 || ctas % pesr::kCluster || ctas < batch * strips * segs)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (C) {
     case 64:
-      return pesr::launch<64>(x, w1, b1, w2, b2, out, batch, H, W, res_scale, s);
+      return pesr::launch<64>(x, w1, b1, w2, b2, out, batch, H, W, res_scale, rows, strips,
+                              segs, ctas, s);
     case 128:
-      return pesr::launch<128>(x, w1, b1, w2, b2, out, batch, H, W, res_scale, s);
+      return pesr::launch<128>(x, w1, b1, w2, b2, out, batch, H, W, res_scale, rows, strips,
+                               segs, ctas, s);
     case 256:
-      return pesr::launch<256>(x, w1, b1, w2, b2, out, batch, H, W, res_scale, s);
+      return pesr::launch<256>(x, w1, b1, w2, b2, out, batch, H, W, res_scale, rows, strips,
+                               segs, ctas, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Clusters of 2 CTAs of the C-channel kernel the device runs at once
+// (negative: minus the CUDA error code).
+extern "C" int pesr_resblock_max_clusters(int C) {
+  switch (C) {
+    case 64:
+      return pesr::max_clusters<64>();
+    case 128:
+      return pesr::max_clusters<128>();
+    case 256:
+      return pesr::max_clusters<256>();
+    default:
+      return -static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+LOGS: Dict[str, str] = {}  # nvcc / ptxas output of each build this process ran
 
 
 def _sources_hash() -> str:
@@ -83,6 +84,7 @@ def build_all(verbose: bool = False) -> Dict[str, Path]:
             tmp.unlink(missing_ok=True)
             continue
         os.replace(tmp, libs[k])
+        LOGS[k] = log
         if verbose:
             print(f"--- built {libs[k]} ---\n{log.strip()}")
     if failed:

@@ -4,9 +4,9 @@ and the halo tiling; and the SAME NHWC conv the plain versions and the
 generator's library convs share.
 
 On the card these live inside the kernels: ``csrc/conv3x3_tile.cuh``
-runs the conv as an implicit GEMM from a shared-memory window that the
-block loads straight from the unpadded tensor (masked loads), so no
-windowed copy is made in device memory.  The versions here state the
+runs the conv as an implicit GEMM (wgmma) from shared-memory windows that
+TMA loads straight from the unpadded tensor (zero fill at the edges), so
+no windowed copy is made in device memory.  The versions here state the
 same semantics in PyTorch, for the tests.
 """
 

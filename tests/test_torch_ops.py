@@ -30,7 +30,11 @@ from pesr_torch.ops.kernels import (fused_resblock, fused_upsampler_stage,
                                     resblock_reference,
                                     upsampler_stage_reference)
 from pesr_torch.ops.kernels.common import conv3x3_shift_acc, halo_tiles, untile
-from pesr_torch.ops.kernels.upsampler import unpack_upsampler_stage
+from pesr_torch.ops.kernels.resblock import (CLUSTER, resblock_schedule,
+                                             resblock_tiles, unpack_resblock)
+from pesr_torch.ops.kernels.upsampler import (unpack_upsampler_stage,
+                                              upsampler_schedule,
+                                              upsampler_tiles)
 from pesr_torch.ops.pixel_shuffle import pixel_shuffle
 
 T = torch.from_numpy
@@ -125,7 +129,7 @@ def test_upsampler_packing_round_trips(c):
     assert torch.equal(w2, wt) and torch.equal(b2, b)
     if c % 64 == 0:
         # packed column g*256 + q*64 + t is torch column (g*64 + t)*4 + q
-        assert torch.equal(wp[..., 256 * (c // 64 - 1) + 64 * 3 + 5],
+        assert torch.equal(wp[:, :, 256 * (c // 64 - 1) + 64 * 3 + 5, :],
                            wt[..., (64 * (c // 64 - 1) + 5) * 4 + 3])
 
 
@@ -178,3 +182,72 @@ def test_common_plain_versions_match_jax():
     np.testing.assert_array_equal(
         back, np.asarray(jax_untile(jnp.asarray(cores.numpy()), 2, nh, nw,
                                     11, 13)))
+
+
+@pytest.mark.parametrize("c", [8, 64])
+def test_packed_layouts_round_trip_and_match_pallas(c):
+    """The kernels' K-major packings ((3, 3, C_out, C_in) per conv) turn
+    back into the HWIO weights, and the wrappers' CPU path on the packed
+    weights matches the JAX package's Pallas kernels."""
+    x, w1, b1, w2, b2 = _resblock_inputs(c=c, b=1, h=9, w=11, seed=c)
+    packed = pack_resblock(T(w1).permute(3, 2, 0, 1), T(b1),
+                           T(w2).permute(3, 2, 0, 1), T(b2), torch.float32)
+    assert packed[0].shape == (3, 3, c, c) and packed[0].is_contiguous()
+    # packed[0][dy, dx, o, i] is HWIO w1[dy, dx, i, o]
+    assert float(packed[0][1, 2, 3, 5]) == float(w1[1, 2, 5, 3])
+    for got, want in zip(unpack_resblock(*packed), (w1, b1, w2, b2)):
+        assert torch.equal(got, T(want))
+    jx = [jnp.asarray(a) for a in (x, w1, b1, w2, b2)]
+    pallas = np.asarray(jax_fused_resblock(*jx, res_scale=0.5, tile=(8, 8),
+                                           interpret=True))
+    ours = fused_resblock(T(x), *packed, res_scale=0.5).numpy()
+    np.testing.assert_allclose(ours, pallas, atol=1e-5 if c < 64 else 3e-5)
+
+    rng = np.random.default_rng(c + 1)
+    wt = (rng.standard_normal((3, 3, c, 4 * c)) * 0.05).astype(np.float32)
+    b = (rng.standard_normal((4 * c,)) * 0.05).astype(np.float32)
+    wp, bp = pack_upsampler_stage(T(wt), T(b), torch.float32)
+    assert wp.shape == (3, 3, 4 * c, c) and wp.is_contiguous()
+    w_back, b_back = unpack_upsampler_stage(wp, bp)
+    assert torch.equal(w_back, T(wt)) and torch.equal(b_back, T(b))
+    pallas = np.asarray(jax_fused_up(jnp.asarray(x), jnp.asarray(wt),
+                                     jnp.asarray(b), tile=(8, 8),
+                                     interpret=True))
+    ours = fused_upsampler_stage(T(x), wp, bp).numpy()
+    np.testing.assert_allclose(ours, pallas, atol=1e-5 if c < 64 else 3e-5)
+
+
+# (batch, H, W): narrower than a strip, a width one past a strip multiple
+# (62), a height one row past a segment boundary, a height shorter than
+# one segment with a batch of 3, and the main path's tile batch.
+_SCHEDULE_SHAPES = [(1, 5, 3), (1, 1, 1), (1, 9, 63), (2, 49, 510),
+                    (3, 5, 1426), (2, 336, 510)]
+
+
+@pytest.mark.parametrize("bsz,h,w", _SCHEDULE_SHAPES)
+def test_resblock_schedule_covers_every_output_once(bsz, h, w):
+    sched = resblock_schedule(bsz, h, w, clusters=132 // CLUSTER)
+    assert sched.rows % 2 == 0 and sched.ctas % CLUSTER == 0
+    assert sched.ctas >= bsz * sched.strips * sched.segs
+    seen = np.zeros((bsz, h, w), np.int32)
+    for _, b, y0, y1, x0, x1 in resblock_tiles(sched, bsz, h, w):
+        seen[b, y0:y1, x0:x1] += 1
+    assert (seen == 1).all()
+    if (bsz, h, w) == (2, 49, 510):
+        assert h % sched.rows == 1          # one row past a segment
+    if (bsz, h, w) == (3, 5, 1426):
+        assert sched.rows > h               # shorter than one segment
+    if (bsz, h, w) == (2, 336, 510):
+        # one wave of clusters on the H100's 132 SMs
+        assert sched[:3] == (48, 9, 7) and sched.ctas <= 132
+
+
+@pytest.mark.parametrize("bsz,h,w", _SCHEDULE_SHAPES + [(2, 672, 1020)])
+@pytest.mark.parametrize("c", [64, 128, 256])
+def test_upsampler_schedule_covers_every_conv_pixel_once(bsz, h, w, c):
+    sched = upsampler_schedule(bsz, h, w, c, clusters=132 // CLUSTER)
+    assert sched.ctas % CLUSTER == 0 and CLUSTER <= sched.ctas <= 132
+    seen = np.zeros((bsz, c // 64, h, w), np.int32)
+    for _, b, g, y, x0, x1 in upsampler_tiles(sched, bsz, h, w, c):
+        seen[b, g, y, x0:x1] += 1
+    assert (seen == 1).all()

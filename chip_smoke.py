@@ -24,6 +24,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               ``BatchTiledUpscaler`` with PNG output: launch counts per
               generator forward, MP/s, and the uint8 output against the
               plain f32 ``Generator`` on the same tile batch.
+4. train   -- the L1 pretrain path at the flagship recipe (32 x 256, x4,
+              batch 16, LR patch 48): each kernel's differentiable form
+              (kernel forward, recomputed backward) against the plain
+              version's f32 autograd at the training shapes and two ragged
+              ones; kernel times at the training shapes; one pretrain
+              step of the kernel path (bf16) against the plain f32
+              ``Generator`` from the same weights and batch; a profile of
+              one step; then ``run_training`` on ``synthetic`` for a few
+              epochs with self-validation and snapshots: the loss falls,
+              launch counts per forward, steps/s and HR MP/s, and the best
+              snapshot reloads through ``pesr_torch.test``.
 
 Prints a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or pesr_tpu.
@@ -32,6 +43,7 @@ Prints a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -57,6 +69,37 @@ ATOL, RTOL = 1e-2, 2.0 ** -7
 LSB_MEAN_TOL, LSB_MAX_TOL = 0.5, 8
 # Ragged (batch, H, W) at the edges of the kernels' decompositions.
 RAGGED = ((1, 5, 3), (1, 1, 1), (1, 9, 63), (2, 49, 510), (3, 5, 1426))
+# The flagship training recipe (pesr_tpu/config.py): batch 16 of 48 x 48
+# LR patches; the kernels see [16, 48, 48] (body, stage 1) and
+# [16, 96, 96] (stage 2).
+TRAIN_BATCH, TRAIN_PATCH = 16, 48
+TRAIN_RAGGED = ((2, 19, 23), (3, 5, 70))
+# A kernel's backward (autograd of the plain version in bf16, recomputed)
+# vs the plain version's f32 autograd on the same bf16-rounded inputs and
+# cotangent, per gradient tensor: ||d|| / ||ref|| <= GRAD_REL_TOL.  Each
+# gradient passes 3-4 bf16 roundings (2^-9 relative each, independent
+# across elements: ~2e-3 in norm) after f32 accumulation in cuDNN.  The
+# resblock's dw1 and db1 also go through the ReLU mask, which the bf16
+# recompute flips wherever the hidden is within its rounding of 0: a
+# share f of flipped elements adds ~sqrt(f) in norm (measured on the
+# H100: up to 1.5e-2, f ~ 2e-4).  3e-2 is 2x that; a wrong tap,
+# transpose or mask gives O(1).
+GRAD_REL_TOL = 3e-2
+# One flagship pretrain step, kernel path (bf16) vs plain Generator (f32),
+# same weights and batch.  The outputs differ by bf16 noise of ~0.3 LSB
+# (0.0024 in [-1, 1] units, main phase), but the noise is nearly
+# zero-mean and cancels in the L1 mean over 16 x 192^2 x 3 values
+# (measured on the H100: |d l1| 1.6e-5).  Gradients of L1 are
+# sign(sr - hr) pulled back; bf16 noise flips the sign only where
+# |sr - hr| is below it (measured: 1 - cosine <= 2.5e-5 over every
+# parameter tensor).  The limits are ~30x and ~40x those readings, and
+# each fault of PLANTED_FAULTS must break them.
+STEP_L1_TOL, GRAD_COS_FLOOR = 5e-4, 0.999
+# Wiring faults planted in the kernel path's generator only (the plain
+# one stays sound): the kind of error a wrong index in ``KernelTrainApply``
+# makes.  The step check fails if any of them passes the limits above.
+PLANTED_FAULTS = ("res_scale applied twice", "x2 stages' weights swapped",
+                  "residual blocks 0 and 1 swapped")
 
 
 def fail(msg: str) -> None:
@@ -262,15 +305,34 @@ def phase_build() -> str:
     return gpu_name_power()
 
 
-def main_path_tile_batch():
+def tile_batch(n: int, h: int, w: int, tile_size="auto", overlap: int = 8):
     """The tile batch (images, tile rows, tile cols; halo included) and
-    the grid (nh, nw, th, tw) the engine's auto chooser gives N_IMAGES
-    images of LR_H x LR_W: the shapes the main path hands the kernels."""
+    the grid (nh, nw, th, tw) the tiled engine gives ``n`` images of
+    h x w: the shapes it hands the kernels."""
     from pesr_torch.ops.tiling import BatchTiledUpscaler
-    eng = BatchTiledUpscaler(lambda x: x, SCALE, "auto", 8)
-    nh, nw, th, tw = eng.grid(N_IMAGES, LR_H, LR_W)
-    return (N_IMAGES, th + 2 * eng._ov_for(nh), tw + 2 * eng._ov_for(nw)), \
+    eng = BatchTiledUpscaler(lambda x: x, SCALE, tile_size, overlap)
+    nh, nw, th, tw = eng.grid(n, h, w)
+    return (n, th + 2 * eng._ov_for(nh), tw + 2 * eng._ov_for(nw)), \
         (nh, nw, th, tw)
+
+
+def main_path_tile_batch():
+    """The tile batch and grid of the main path: N_IMAGES images of
+    LR_H x LR_W under the engine's auto chooser."""
+    return tile_batch(N_IMAGES, LR_H, LR_W)
+
+
+def eval_tile_batches(opts) -> list:
+    """The tile batches ``training.loop.evaluate`` hands the kernels: the
+    validation set of ``opts`` chunked and tiled as its engine does."""
+    from pesr_torch.data.datasets import load_eval_set
+    from pesr_torch.ops.tiling import BatchTiledUpscaler
+    lrs = [s.lr for s in load_eval_set(opts, opts.valid_dataset,
+                                       opts.num_valids)]
+    return sorted({tile_batch(len(chunk), *shape[:2], opts.tile_size,
+                              opts.tile_overlap)[0]
+                   for shape, chunk in BatchTiledUpscaler._chunks(
+                       lrs, opts.infer_batch)})
 
 
 def phase_kernels(card: str) -> dict:
@@ -307,6 +369,14 @@ def phase_kernels(card: str) -> dict:
     check_resblock(b, th, tw, CHANNELS, 1.0, seed=2)
     up1 = check_upsampler(b, th, tw, CHANNELS, seed=3, timing=True)
     up2 = check_upsampler(b, 2 * th, 2 * tw, CHANNELS, seed=4, timing=True)
+    print_times(rb, up1, up2, card)
+    torch.cuda.empty_cache()
+    return {"fused_resblock": rb, "fused_upsampler_stage": up2,
+            "upsampler_stage1": up1}
+
+
+def print_times(rb: dict, up1: dict, up2: dict, card: str) -> None:
+    """The timed checks of the three kernel calls of one path."""
     for name, r in (("fused_resblock", rb),
                     ("fused_upsampler_stage (stage 1)", up1),
                     ("fused_upsampler_stage (stage 2)", up2)):
@@ -319,15 +389,16 @@ def phase_kernels(card: str) -> dict:
         gb = r["weight_l2_bytes"] / 1e9
         print(f"    {r['schedule']}: weights from L2 {gb:.2f} GB per launch "
               f"= {gb / r['ms']:.2f} TB/s at the median time", flush=True)
-    torch.cuda.empty_cache()
-    return {"fused_resblock": rb, "fused_upsampler_stage": up2,
-            "upsampler_stage1": up1}
 
 
-def profile_breakdown(fn, card: str, top: int = 8) -> None:
+def profile_breakdown(fn, card: str, top: int = 8, group=None,
+                      host_top: int = 0) -> dict:
     """Where the time of one ``fn()`` goes on the device: torch.profiler
     self device time by kernel, and the device's busy share of the wall
-    time (the rest is host work, transfers and launch gaps)."""
+    time (the rest is host work, transfers and launch gaps).  ``group``
+    maps a kernel name to a group; the shares of the groups are printed
+    and returned.  ``host_top``: also print the device launches and the
+    host ops with the most self CPU time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -342,12 +413,22 @@ def profile_breakdown(fn, card: str, top: int = 8) -> None:
         return (getattr(e, "self_device_time_total", None)
                 or getattr(e, "self_cuda_time_total", 0) or 0)
 
-    # Device-side entries only (kernels, memcpy): an aten:: op's self
-    # device time repeats the kernels it launched, and a CUDA runtime
-    # call's (cudaLaunchKernel, cudaMemcpyAsync) the work it enqueued.
+    # Device-side entries only (kernels, memcpy): a host op's self device
+    # time (an aten:: op, an autograd Function, a record_function range
+    # such as Adam.step) repeats the kernels it launched, and a CUDA
+    # runtime call's (cudaLaunchKernel, cudaMemcpyAsync) the work it
+    # enqueued; a range's device-side annotation spans kernels too.
+    from torch.autograd import DeviceType
+
+    def on_device(e):
+        if getattr(e, "is_user_annotation", False):
+            return False
+        if getattr(e, "device_type", None) is not None:
+            return e.device_type == DeviceType.CUDA
+        return not e.key.startswith(("aten::", "cuda"))
+
     events = sorted((e for e in prof.key_averages()
-                     if dev_us(e) > 0 and not e.key.startswith("aten::")
-                     and not e.key.startswith("cuda")),
+                     if dev_us(e) > 0 and on_device(e)),
                     key=dev_us, reverse=True)
     busy = sum(dev_us(e) for e in events)
     print(f"  profile of one batch on {card}: wall {wall_us / 1e3:.2f} ms "
@@ -357,6 +438,25 @@ def profile_breakdown(fn, card: str, top: int = 8) -> None:
         print(f"    {100 * dev_us(e) / max(busy, 1):5.1f}%  "
               f"{dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}",
               flush=True)
+    shares = {}
+    if group is not None:
+        for e in events:
+            shares[group(e.key)] = shares.get(group(e.key), 0) + dev_us(e)
+        for g, us in sorted(shares.items(), key=lambda kv: -kv[1]):
+            print(f"    group {g}: {us / 1e3:.3f} ms = "
+                  f"{100 * us / max(busy, 1):.1f}% of device time",
+                  flush=True)
+    if host_top:
+        host = sorted((e for e in prof.key_averages() if not on_device(e)
+                       and not getattr(e, "is_user_annotation", False)),
+                      key=lambda e: e.self_cpu_time_total, reverse=True)
+        print(f"    {sum(e.count for e in events)} device launches; host "
+              f"ops by self CPU time (profiler on):", flush=True)
+        for e in host[:host_top]:
+            print(f"      {e.self_cpu_time_total / 1e3:8.3f} ms  "
+                  f"x{e.count:<5d} {e.key[:80]}", flush=True)
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "groups_ms": {g: us / 1e3 for g, us in shares.items()}}
 
 
 def phase_main(card: str) -> dict:
@@ -447,6 +547,282 @@ def phase_main(card: str) -> dict:
             "synthetic_mp_per_s": summary["mp_per_s"]}
 
 
+def check_backward(kind: str, bsz: int, h: int, w: int, c: int,
+                   seed: int) -> dict:
+    """Forward and backward of a kernel's differentiable form
+    (``fused_resblock_train`` / ``fused_upsampler_stage_train``, OIHW bf16
+    weights) against the plain version's f32 autograd on the same
+    bf16-rounded inputs and bf16 cotangent."""
+    import torch
+    from pesr_torch.ops.kernels import (fused_resblock_train,
+                                        fused_upsampler_stage_train,
+                                        resblock_reference,
+                                        upsampler_stage_reference)
+    if kind == "resblock":
+        x, (w1, b1, w2, b2) = make_inputs(
+            (bsz, h, w, c), [(3, 3, c, c), (c,), (3, 3, c, c), (c,)], seed)
+        ins = [x, w1.permute(3, 2, 0, 1).contiguous(), b1.bfloat16(),
+               w2.permute(3, 2, 0, 1).contiguous(), b2.bfloat16()]
+        names = ("x", "w1", "b1", "w2", "b2")
+
+        def ours(x, w1, b1, w2, b2):
+            return fused_resblock_train(x, w1, b1, w2, b2, 0.1)
+
+        def plain(x, w1, b1, w2, b2):
+            return resblock_reference(x, w1.permute(2, 3, 1, 0), b1,
+                                      w2.permute(2, 3, 1, 0), b2, 0.1)
+    else:
+        x, (wt, b) = make_inputs((bsz, h, w, c), [(3, 3, c, 4 * c),
+                                                  (4 * c,)], seed)
+        ins = [x, wt.permute(3, 2, 0, 1).contiguous(), b.bfloat16()]
+        names = ("x", "w", "b")
+        ours = fused_upsampler_stage_train
+
+        def plain(x, w, b):
+            return upsampler_stage_reference(x, w.permute(2, 3, 1, 0), b)
+    a = [t.detach().requires_grad_() for t in ins]
+    out = ours(*a)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cot = torch.randn(out.shape, generator=gen, device="cuda").bfloat16()
+    got = torch.autograd.grad(out, a, cot)
+    r = [t.detach().float().requires_grad_() for t in ins]
+    ref_out = plain(*r)
+    ref = torch.autograd.grad(ref_out, r, cot.float())
+    label = f"{kind} [{bsz},{h},{w},{c}]"
+    res = compare(f"{label} forward", out.detach(), ref_out.detach())
+    worst = 0.0
+    parts = []
+    for n, g, rg in zip(names, got, ref):
+        rel = float((g.float() - rg).norm() / rg.norm().clamp_min(1e-30))
+        cos = float(torch.nn.functional.cosine_similarity(
+            g.float().flatten(), rg.flatten(), dim=0))
+        worst = max(worst, rel)
+        parts.append(f"d{n} rel {rel:.2e} cos {cos:.6f}")
+        if not rel <= GRAD_REL_TOL:
+            fail(f"{label}: gradient of {n} disagrees with the plain f32 "
+                 f"autograd (||d||/||ref|| {rel:.3g} > {GRAD_REL_TOL})")
+    print(f"  {label} backward: {'; '.join(parts)} (pass: rel <= "
+          f"{GRAD_REL_TOL})", flush=True)
+    res["grad_rel_worst"] = worst
+    return res
+
+
+def _train_batch(seed: int):
+    """One training batch of the flagship recipe on the card: crops of
+    the synthetic corpus, LR synthesized, dihedral bits from ``seed``."""
+    import torch
+    from pesr_torch.data.augment import dihedral_bits, prepare_train_batch
+    from pesr_torch.data.datasets import PatchIterator, SyntheticImages
+    it = PatchIterator(SyntheticImages(32, seed=seed), TRAIN_PATCH, SCALE,
+                       TRAIN_BATCH, seed=seed)
+    _, hr_u8 = next(it)
+    bits = dihedral_bits(torch.Generator().manual_seed(seed), TRAIN_BATCH,
+                         "cuda")
+    return prepare_train_batch(bits, torch.from_numpy(hr_u8).cuda(), SCALE)
+
+
+def _plant_fault(g, fault: str) -> None:
+    """Plant one of PLANTED_FAULTS in generator ``g``, in place."""
+    import torch
+    from pesr_torch.models.kernel_apply import generator_convs
+    if fault == "res_scale applied twice":
+        g.res_scale = g.res_scale ** 2
+        return
+    _, blocks, _, stages, _ = generator_convs(g)
+    a, b = ((blocks[0], blocks[1]) if fault.startswith("residual blocks")
+            else ((stages[0][1],), (stages[1][1],)))
+    with torch.no_grad():
+        for ma, mb in zip(a, b):
+            for p, q in zip(ma.parameters(), mb.parameters()):
+                t = p.clone()
+                p.copy_(q)
+                q.copy_(t)
+
+
+def step_agreement(opts, step, batch, ref, fault=None):
+    """One pretrain step of the kernel path on a fresh seed-0 flagship
+    generator (``fault`` planted) against the plain step's ``ref`` = (L1,
+    {parameter name: gradient}).  Returns |d L1|, the least gradient
+    cosine over the parameter tensors, its tensor, and the train state."""
+    import torch
+    from pesr_torch.models.generator import Generator
+    from pesr_torch.training.state import create_generator_state
+    gen = Generator(SCALE, BLOCKS, CHANNELS, seed=0)
+    if fault is not None:
+        _plant_fault(gen, fault)
+    state = create_generator_state(opts, torch.device("cuda"), gen)
+    m = step(state, *batch)
+    cos, name = min((float(torch.nn.functional.cosine_similarity(
+        p.grad.flatten(), ref[1][n].flatten(), dim=0)), n)
+        for n, p in gen.named_parameters())
+    return abs(float(m["l1"]) - ref[0]), cos, name, state
+
+
+def _profile_group(key: str) -> str:
+    if "resblock_kernel<" in key or "upsampler_kernel<" in key:
+        return "forward kernels (ours)"
+    k = key.lower()
+    if any(t in k for t in ("conv", "xmma", "cudnn", "wgrad", "dgrad",
+                            "fprop", "gemm", "cutlass", "nhwc")):
+        return ("cuDNN convs (backward, its recomputed forward, "
+                "head/tail/out)")
+    return "everything else (Adam, casts, losses, LR synthesis, copies)"
+
+
+def phase_train(card: str) -> dict:
+    import torch
+    from pesr_torch import test as cli
+    from pesr_torch.config import Opts
+    from pesr_torch.models.generator import Generator
+    from pesr_torch.ops import kernels
+    from pesr_torch.training.loop import run_training
+    from pesr_torch.training.state import TrainState, create_generator_state
+    from pesr_torch.training.steps import make_pretrain_step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c = CHANNELS
+    print(f"[train] backward of each kernel's differentiable form at C = "
+          f"{c} (training shapes, then ragged) on {card}", flush=True)
+    bt, p = TRAIN_BATCH, TRAIN_PATCH
+    for kind, shape in (("resblock", (bt, p, p)), ("upsampler", (bt, p, p)),
+                        ("upsampler", (bt, 2 * p, 2 * p))):
+        check_backward(kind, *shape, c, seed=7)
+    for i, shape in enumerate(TRAIN_RAGGED):
+        check_backward("resblock", *shape, c, seed=20 + i)
+        check_backward("upsampler", *shape, c, seed=30 + i)
+    torch.cuda.empty_cache()
+
+    print(f"[train] kernel times at the training shapes, C = {c}",
+          flush=True)
+    rb = check_resblock(bt, p, p, c, 0.1, seed=11, timing=True)
+    up1 = check_upsampler(bt, p, p, c, seed=12, timing=True)
+    up2 = check_upsampler(bt, 2 * p, 2 * p, c, seed=13, timing=True)
+    print_times(rb, up1, up2, card)
+    torch.cuda.empty_cache()
+
+    print(f"[train] one pretrain step at {BLOCKS}x{c} x{SCALE}, batch {bt}, "
+          f"patch {p}: kernel path (bf16) vs plain Generator (f32)",
+          flush=True)
+    opts = Opts(scale=SCALE, num_blocks=BLOCKS, num_channels=c,
+                batch_size=bt, patch_size=p, device="cuda")
+    step = make_pretrain_step(opts)
+    batch = _train_batch(seed=0)
+    gen_p = Generator(SCALE, BLOCKS, c, seed=0)
+    plain = create_generator_state(opts, torch.device("cuda"), gen_p)
+    m_p = step(TrainState(gen_p, plain.optimizer, plain.lr_at, gen_p), *batch)
+    ref = (float(m_p["l1"]),
+           {n: q.grad for n, q in gen_p.named_parameters()})
+    del plain, gen_p
+    dl1, worst_cos, worst_name, state_k = step_agreement(opts, step, batch,
+                                                         ref)
+    print(f"  L1 {ref[0]:.6f} (plain): kernel path |d L1| {dl1:.2e} "
+          f"(limit {STEP_L1_TOL}); least gradient cosine over the "
+          f"parameter tensors {worst_cos:.6f} ({worst_name}; floor "
+          f"{GRAD_COS_FLOOR})", flush=True)
+    if not (dl1 <= STEP_L1_TOL and worst_cos >= GRAD_COS_FLOOR):
+        fail("the kernel path's pretrain step disagrees with the plain "
+             "Generator's")
+    for fault in PLANTED_FAULTS:
+        f_dl1, f_cos, f_name, _ = step_agreement(opts, step, batch, ref,
+                                                 fault)
+        print(f"  planted fault '{fault}': |d L1| {f_dl1:.2e}, least "
+              f"cosine {f_cos:.6f} ({f_name})", flush=True)
+        if f_dl1 <= STEP_L1_TOL and f_cos >= GRAD_COS_FLOOR:
+            fail(f"the step limits pass the planted fault '{fault}'")
+    del ref
+    torch.cuda.empty_cache()
+    lr_img, hr_img = batch
+    host_ms, wall_ms = [], []
+    kernels.reset_launch_counts()
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state_k, lr_img, hr_img)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        wall_ms.append(1e3 * (time.perf_counter() - t0))
+    counts = kernels.launch_counts()
+    if counts != {"fused_resblock": 5 * BLOCKS, "fused_upsampler_stage": 10}:
+        fail(f"launches in 5 pretrain steps: {counts}")
+    per_step = {k: v // 5 for k, v in counts.items()}
+    print(f"  one step from an idle device: the host queues it in "
+          f"{sorted(host_ms)[2]:.2f} ms, it ends {sorted(wall_ms)[2]:.2f} ms "
+          f"after it starts (medians of 5) [{card}]", flush=True)
+    prof = profile_breakdown(lambda: step(state_k, lr_img, hr_img), card,
+                             top=10, group=_profile_group, host_top=8)
+    prof["host_ms"], prof["step_ms"] = sorted(host_ms)[2], sorted(wall_ms)[2]
+    del state_k
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        spe, epochs, log_every = 20, 3, 10
+        print(f"[train] run_training: {BLOCKS}x{c} x{SCALE}, batch {bt}, "
+              f"patch {p}, synthetic, {epochs} epochs x {spe} steps, eval "
+              f"on 2 synthetic images each epoch", flush=True)
+        topts = Opts(scale=SCALE, num_blocks=BLOCKS, num_channels=c,
+                     batch_size=bt, patch_size=p, train_dataset="synthetic",
+                     valid_dataset="synthetic", num_valids=2,
+                     steps_per_epoch=spe, num_epochs=epochs,
+                     log_every=log_every, snapshot_every=1, keep_snapshots=1,
+                     check_point=os.path.join(tmp, "ckpt"), device="cuda")
+        print("[train] the eval forwards' tile batches, C = "
+              f"{c}", flush=True)
+        for b, th, tw in eval_tile_batches(topts):
+            check_resblock(b, th, tw, c, 0.1, seed=14)
+            check_upsampler(b, th, tw, c, seed=15)
+            check_upsampler(b, 2 * th, 2 * tw, c, seed=16)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = run_training(topts)
+        run_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        fwd = summary["train_forwards"] + summary["eval_forwards"]
+        want = {"fused_resblock": BLOCKS * fwd,
+                "fused_upsampler_stage": 2 * fwd}
+        print(f"  run_training: {summary['train_forwards']} training + "
+              f"{summary['eval_forwards']} eval forwards, launches {counts}"
+              f" (expected {want})", flush=True)
+        if summary["train_forwards"] != spe * epochs or counts != want:
+            fail(f"run_training: launch counts {counts} != {want}")
+        with open(os.path.join(topts.check_point, "pretrain.jsonl")) as f:
+            recs = [r for r in map(json.loads, f) if "l1" in r]
+        l1s = [r["l1"] for r in recs]
+        print(f"  L1 per {log_every}-step window: "
+              f"{[round(v, 5) for v in l1s]}", flush=True)
+        if not all(map(math.isfinite, l1s)) or not l1s[-1] < l1s[0]:
+            fail(f"run_training: the L1 loss did not fall ({l1s})")
+        steady = recs[spe // log_every:]   # after the first epoch
+        sps = sorted(r["steps_per_s"] for r in steady)[len(steady) // 2]
+        mps = sorted(r["mpx_per_s"] for r in steady)[len(steady) // 2]
+        run_sps = summary["steps"] / run_s
+        run_mps = run_sps * bt * (p * SCALE) ** 2 / 1e6
+        print(f"  training throughput (median of {len(steady)} windows "
+              f"after the first epoch): {sps:.3f} steps/s, {mps:.3f} HR "
+              f"MP/s at batch {bt} x {p * SCALE}^2 on {card}", flush=True)
+        print(f"  over the whole run_training call ({summary['steps']} "
+              f"steps in {run_s:.2f} s: set-up, warm-up, {epochs} evals "
+              f"and snapshots included): {run_sps:.3f} steps/s, "
+              f"{run_mps:.3f} HR MP/s on {card}", flush=True)
+        best = os.path.join(topts.check_point, "best")
+        if not os.path.isfile(os.path.join(best, "generator.pth")):
+            fail("run_training wrote no best/generator.pth")
+        res = cli.run(["--dataset", "synthetic", "--scale", str(SCALE),
+                       "--num_blocks", str(BLOCKS), "--num_channels",
+                       str(c), "--model_path", best, "--output_dir",
+                       os.path.join(tmp, "out")])
+        if not math.isfinite(res["psnr"]):
+            fail(f"best/generator.pth through pesr_torch.test: PSNR "
+                 f"{res['psnr']}")
+        print(f"  best/ (val_psnr {summary.get('best_psnr')}) reloads "
+              f"through pesr_torch.test: PSNR {res['psnr']:.3f} dB",
+              flush=True)
+    return {"fused_resblock": rb, "fused_upsampler_stage": up2,
+            "upsampler_stage1": up1, "launches": counts,
+            "launches_per_step": per_step, "steps_per_s": sps,
+            "mpx_per_s": mps, "run_steps_per_s": run_sps, "profile": prof,
+            "l1": l1s}
+
+
 def main() -> int:
     try:
         import torch
@@ -468,6 +844,7 @@ def main() -> int:
     print(card, flush=True)
     ker = phase_kernels(card)
     main_res = phase_main(card)
+    train_res = phase_train(card)
     sources = {"fused_resblock": ("pesr_torch/csrc/resblock.cu",
                                   "pesr_tpu/ops/pallas/resblock.py:96"),
                "fused_upsampler_stage": ("pesr_torch/csrc/upsampler.cu",
@@ -479,7 +856,11 @@ def main() -> int:
          "plain_ms": ker[name]["plain_ms"],
          "bound_ms": ker[name]["bound_ms"],
          "bound_by": ker[name]["bound_by"],
-         "library_ms": ker[name]["library_ms"]}
+         "library_ms": ker[name]["library_ms"],
+         "train_launches_per_step": train_res["launches_per_step"][name],
+         "train_ms": train_res[name]["ms"],
+         "train_bound_ms": train_res[name]["bound_ms"],
+         "train_library_ms": train_res[name]["library_ms"]}
         for name, (src, rep) in sources.items()]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

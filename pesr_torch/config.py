@@ -1,9 +1,14 @@
-"""Inference options of the port (the test-mode subset of
-``pesr_tpu/config.py``).
+"""Options of the port: the test-mode and train-mode subsets of
+``pesr_tpu/config.py``.
 
-Flags the port does not implement yet (``--quant``, ``--fold``,
-``--self_ensemble``, ``--mesh_shape``, ``--export_artifact``, ...) are
-not in the parser, so argparse rejects them instead of ignoring them.
+Flags the port does not implement yet are not in the parsers, so argparse
+rejects them instead of ignoring them: in test mode ``--quant``,
+``--fold``, ``--self_ensemble``, ``--mesh_shape``, ``--export_artifact``,
+...; in train mode the GAN-loss flags, ``--phase train/qat``,
+``--fold_train``, ``--mesh_shape``, ``--distributed``, ``--profile_dir``,
+``--eval_pi``, ``--trim_host_heap``, ``--vgg_weights``, ...  The port
+always runs its kernels (no ``--use_pallas``) and its recompute backward
+keeps only each block's input (no ``--remat``).
 """
 
 from __future__ import annotations
@@ -17,19 +22,49 @@ from pesr_torch.scales import upsample_stages
 
 @dataclasses.dataclass(frozen=True)
 class Opts:
+    # model
     scale: int = 4
     num_channels: int = 256
     num_blocks: int = 32
     res_scale: float = 0.1
+    # data
+    train_dataset: str = "DIV2K"
+    valid_dataset: str = "PIRM"
     test_dataset: str = "Set5"
     data_root: str = "data"
+    num_valids: int = 10
+    patch_size: int = 48          # LR patch side; HR side = patch_size*scale
+    batch_size: int = 16
+    num_repeats: int = 20         # epoch = image list x num_repeats
+    # training
+    phase: str = "pretrain"
+    pretrained_model: str = ""
+    learning_rate: float = 1e-4
+    lr_step: int = 120            # epochs between x0.5 LR decays
+    num_epochs: int = 300
+    steps_per_epoch: int = 0      # 0 = ceil(num_images * num_repeats / batch)
+    seed: int = 0
+    ema_decay: float = 0.0        # 0 = off
+    grad_accum: int = 1           # microbatches per optimizer step
+    compute_dtype: str = "bfloat16"  # the kernels take bf16; f32 on the CPU
+    # checkpoints / logging
+    check_point: str = "check_point/pesr"
+    snapshot_every: int = 10      # epochs between snapshots (0 = last only)
+    keep_snapshots: int = 0       # newest step_<K> dirs kept (0 = all)
+    log_every: int = 50           # steps between scalar logs (0 = off)
+    eval_every: int = 1           # epochs between self-validations (0 = off)
+    resume: bool = False
+    # inference (the training self-validation tiles as the JAX one: 96)
     model_path: str = ""
     output_dir: str = "results"
-    tile_size: object = "auto"    # int, 0 = whole image, or "auto"
+    tile_size: object = 96        # int, 0 = whole image, or "auto"
     tile_overlap: int = 8         # LR halo on each side
     infer_batch: int = 8          # images per device batch
-    seed: int = 0
     device: str = "cuda"
+
+    @property
+    def hr_patch_size(self) -> int:
+        return self.patch_size * self.scale
 
 
 def _tile_size(value: str):
@@ -39,41 +74,112 @@ def _tile_size(value: str):
     return int(value)
 
 
-def build_parser() -> argparse.ArgumentParser:
-    d = Opts()
-    p = argparse.ArgumentParser(
-        prog="python -m pesr_torch.test",
-        description="pesr_torch inference: tiled x-scale SR of an eval set "
-                    "on the H100 kernels, PNGs out, PSNR/SSIM printed",
-        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+def _add_model_flags(p: argparse.ArgumentParser, d: Opts) -> None:
     g = p.add_argument_group("model")
     g.add_argument("--scale", type=int, default=d.scale,
                    help="super-resolution scale (any 2^a*3^b)")
     g.add_argument("--num_channels", type=int, default=d.num_channels)
     g.add_argument("--num_blocks", type=int, default=d.num_blocks)
     g.add_argument("--res_scale", type=float, default=d.res_scale)
+
+
+def build_parser(mode: str = "test") -> argparse.ArgumentParser:
+    """The flags of ``python -m pesr_torch.test`` (``mode="test"``) or
+    ``python -m pesr_torch.train`` (``mode="train"``)."""
+    d = Opts()
+    desc = {"test": "pesr_torch inference: tiled x-scale SR of an eval set "
+                    "on the H100 kernels, PNGs out, PSNR/SSIM printed",
+            "train": "pesr_torch training: the L1 pretrain phase on the "
+                     "H100 kernels, with PSNR/SSIM self-validation and "
+                     "snapshots"}[mode]
+    p = argparse.ArgumentParser(
+        prog=f"python -m pesr_torch.{mode}", description=desc,
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    _add_model_flags(p, d)
     g = p.add_argument_group("data")
-    g.add_argument("--dataset", "--test_dataset", dest="test_dataset",
-                   default=d.test_dataset,
-                   help="'synthetic' or a folder <data_root>/<name>/HR")
+    if mode == "test":
+        g.add_argument("--dataset", "--test_dataset", dest="test_dataset",
+                       default=d.test_dataset,
+                       help="'synthetic' or a folder <data_root>/<name>/HR")
+    else:
+        g.add_argument("--train_dataset", default=d.train_dataset,
+                       help="'synthetic', 'DIV2K' (<data_root>/DIV2K/"
+                            "DIV2K_train_HR) or a folder <data_root>/<name>")
+        g.add_argument("--valid_dataset", default=d.valid_dataset,
+                       help="'synthetic' or an eval folder, as --dataset "
+                            "of pesr_torch.test")
+        g.add_argument("--num_valids", type=int, default=d.num_valids)
+        g.add_argument("--patch_size", type=int, default=d.patch_size,
+                       help="LR patch side")
+        g.add_argument("--batch_size", type=int, default=d.batch_size)
+        g.add_argument("--num_repeats", type=int, default=d.num_repeats)
     g.add_argument("--data_root", default=d.data_root)
-    g.add_argument("--seed", type=int, default=d.seed,
-                   help="random init (no --model_path) and synthetic data")
-    g = p.add_argument_group("inference")
-    g.add_argument("--model_path", default=d.model_path,
-                   help="EDSR-style generator .pth (see "
-                        "pesr_tpu.convert.save_generator_torch)")
-    g.add_argument("--output_dir", default=d.output_dir)
-    g.add_argument("--tile_size", type=_tile_size, default=d.tile_size,
-                   help='LR tile side, 0 = whole image, or "auto"')
-    g.add_argument("--tile_overlap", type=int, default=d.tile_overlap)
-    g.add_argument("--infer_batch", type=int, default=d.infer_batch)
-    g.add_argument("--device", default=d.device,
+    if mode == "test":
+        g.add_argument("--seed", type=int, default=d.seed,
+                       help="random init (no --model_path) and synthetic "
+                            "data")
+        g = p.add_argument_group("inference")
+        g.add_argument("--model_path", default=d.model_path,
+                       help="EDSR-style generator .pth (see pesr_tpu.convert."
+                            "save_generator_torch) or a pesr_torch training "
+                            "checkpoint directory")
+        g.add_argument("--output_dir", default=d.output_dir)
+        g.add_argument("--tile_size", type=_tile_size, default="auto",
+                       help='LR tile side, 0 = whole image, or "auto"')
+        g.add_argument("--tile_overlap", type=int, default=d.tile_overlap)
+        g.add_argument("--infer_batch", type=int, default=d.infer_batch)
+    else:
+        g = p.add_argument_group("training")
+        g.add_argument("--phase", default=d.phase, choices=["pretrain"],
+                       help="L1 pretraining (the GAN phase is not ported "
+                            "yet)")
+        g.add_argument("--pretrained_model", default=d.pretrained_model,
+                       help="initial generator: a pesr_torch checkpoint "
+                            "directory (EMA preferred)")
+        g.add_argument("--learning_rate", type=float,
+                       default=d.learning_rate)
+        g.add_argument("--lr_step", type=int, default=d.lr_step,
+                       help="epochs between x0.5 LR decays")
+        g.add_argument("--num_epochs", type=int, default=d.num_epochs)
+        g.add_argument("--steps_per_epoch", type=int,
+                       default=d.steps_per_epoch,
+                       help="0 = ceil(num_images * num_repeats / "
+                            "batch_size)")
+        g.add_argument("--seed", type=int, default=d.seed,
+                       help="init, data crops and augmentation")
+        g.add_argument("--ema_decay", type=float, default=d.ema_decay,
+                       help="EMA of the generator parameters (0 = off); "
+                            "eval, best checkpoint and inference use it")
+        g.add_argument("--grad_accum", type=int, default=d.grad_accum,
+                       help="microbatches per optimizer step (batch_size "
+                            "must divide)")
+        g = p.add_argument_group("checkpointing")
+        g.add_argument("--check_point", default=d.check_point)
+        g.add_argument("--snapshot_every", type=int, default=d.snapshot_every)
+        g.add_argument("--keep_snapshots", type=int,
+                       default=d.keep_snapshots,
+                       help="retain the newest N step_<K> dirs (0 = all; "
+                            "'best' is never pruned)")
+        g.add_argument("--log_every", type=int, default=d.log_every)
+        g.add_argument("--eval_every", type=int, default=d.eval_every)
+        g.add_argument("--resume", dest="resume", action="store_true",
+                       default=d.resume,
+                       help="resume generator/optimizer state from the "
+                            "newest snapshot under --check_point")
+        g.add_argument("--no_resume", dest="resume", action="store_false",
+                       help=argparse.SUPPRESS)
+    p.add_argument("--device", default=d.device,
                    help="cuda (default; raises without CUDA) or cpu")
     return p
 
 
-def opts_from_args(argv: Optional[Sequence[str]] = None) -> Opts:
-    opts = Opts(**vars(build_parser().parse_args(argv)))
+def opts_from_args(argv: Optional[Sequence[str]] = None,
+                   mode: str = "test") -> Opts:
+    opts = Opts(**vars(build_parser(mode).parse_args(argv)))
     upsample_stages(opts.scale)  # fail fast on e.g. 5
+    if opts.grad_accum < 1:
+        raise SystemExit(f"--grad_accum must be >= 1, got {opts.grad_accum}")
+    if mode == "train" and opts.batch_size % opts.grad_accum:
+        raise SystemExit(f"--batch_size {opts.batch_size} must be divisible "
+                         f"by --grad_accum {opts.grad_accum}")
     return opts

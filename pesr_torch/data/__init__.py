@@ -1,1 +1,3 @@
-"""Host-side data: uint8 <-> model-space conversion and eval sets."""
+"""Host-side data: uint8 <-> model-space conversion, the training batch
+stage (LR synthesis, dihedral augmentation), the training crop stream
+and eval sets."""

@@ -1,1 +1,2 @@
-"""Generator (plain PyTorch reference) and its kernel-backed apply."""
+"""Generator (plain PyTorch reference) and its kernel-backed applies
+(inference and training)."""

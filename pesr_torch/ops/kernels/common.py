@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the shared pieces of the TPU conv kernels
 (``pesr_tpu/ops/pallas/common.py``): the shift-accumulate VALID 3x3 conv
-and the halo tiling; and the SAME NHWC conv the plain versions and the
-generator's library convs share.
+and the halo tiling; the SAME NHWC conv the plain versions and the
+generator's library convs share; and the recompute backward of the
+kernels' autograd Functions.
 
 On the card these live inside the kernels: ``csrc/conv3x3_tile.cuh``
 runs the conv as an implicit GEMM (wgmma) from shared-memory windows that
@@ -12,7 +13,7 @@ same semantics in PyTorch, for the tests.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -66,3 +67,18 @@ def untile(tiles: torch.Tensor, b: int, nh: int, nw: int, h: int, w: int
     th, tw, c = tiles.shape[1:]
     out = tiles.reshape(b, nh, nw, th, tw, c).permute(0, 1, 3, 2, 4, 5)
     return out.reshape(b, nh * th, nw * tw, c)[:, :h, :w]
+
+
+def recompute_backward(ctx, plain: Callable, g: torch.Tensor
+                       ) -> List[Optional[torch.Tensor]]:
+    """Backward of a kernel's autograd Function: autograd of its plain
+    version, recomputed from the tensors the forward saved, in their
+    dtype (the JAX kernels' ``custom_vjp`` backward).  Returns one
+    gradient per saved tensor, None where none was asked for."""
+    saved = [t.detach().requires_grad_(need) for t, need in
+             zip(ctx.saved_tensors, ctx.needs_input_grad)]
+    with torch.enable_grad():
+        out = plain(*saved)
+    grads = iter(torch.autograd.grad(
+        out, [t for t in saved if t.requires_grad], g))
+    return [next(grads) if t.requires_grad else None for t in saved]

@@ -17,7 +17,9 @@ weights are loaded, and :func:`unpack_resblock` turns them back to HWIO.
 :func:`resblock_reference`, the plain PyTorch version, for a CPU tensor.
 ``fused_resblock.launches`` counts kernel launches.
 :func:`resblock_schedule` is the kernel's work decomposition, computed
-here so that the CPU tests can check it.
+here so that the CPU tests can check it.  :func:`fused_resblock_train`
+is the differentiable form training uses: the kernel forward on weights
+packed per call, a backward recomputed through the plain version.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import Iterator, NamedTuple, Tuple
 import torch
 
 from pesr_torch.ops.kernels import build
-from pesr_torch.ops.kernels.common import conv3x3_nhwc
+from pesr_torch.ops.kernels.common import conv3x3_nhwc, recompute_backward
 
 KERNEL_CHANNELS = (64, 128, 256)
 CLUSTER = 2     # CTAs sharing each weight fetch (kCluster, conv3x3_tile.cuh)
@@ -193,3 +195,39 @@ def fused_resblock(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 
 fused_resblock.launches = 0
+
+
+class FusedResblock(torch.autograd.Function):
+    """:func:`fused_resblock` with a backward (counterpart of the JAX
+    kernel's ``custom_vjp``, ``_resblock_fwd`` / ``_resblock_bwd``).
+
+    Takes unpacked torch OIHW weights and biases in x.dtype.  Forward:
+    packs them (no grad) and runs :func:`fused_resblock`; saves only
+    ``x`` and the unpacked weights.  Backward: autograd of
+    :func:`resblock_reference`, recomputed from the saved tensors in
+    x.dtype -- the hidden activation is never stored, so the body keeps
+    one activation per block between forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, res_scale):
+        ctx.res_scale = res_scale
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return fused_resblock(x, *pack_resblock(w1, b1, w2, b2, w1.dtype),
+                              res_scale=res_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        rs = ctx.res_scale
+        return (*recompute_backward(
+            ctx, lambda x, w1, b1, w2, b2: resblock_reference(
+                x, w1.permute(2, 3, 1, 0), b1, w2.permute(2, 3, 1, 0), b2,
+                rs), g), None)
+
+
+def fused_resblock_train(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                         w2: torch.Tensor, b2: torch.Tensor,
+                         res_scale: float = 0.1) -> torch.Tensor:
+    """Differentiable :func:`fused_resblock` on OIHW weights and biases in
+    x.dtype (:class:`FusedResblock`).  The same launch counter counts its
+    forwards; a backward launches no kernel of this module."""
+    return FusedResblock.apply(x, w1, b1, w2, b2, float(res_scale))

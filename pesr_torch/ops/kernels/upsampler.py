@@ -20,6 +20,9 @@ that the CPU tests can check it.
 :func:`fused_upsampler_stage` launches the kernel for a CUDA tensor and
 runs :func:`upsampler_stage_reference`, the plain PyTorch version, for a
 CPU tensor.  ``fused_upsampler_stage.launches`` counts kernel launches.
+:func:`fused_upsampler_stage_train` is the differentiable form training
+uses: the kernel forward on weights packed per call, a backward
+recomputed through the plain version.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from typing import Iterator, NamedTuple, Tuple
 import torch
 
 from pesr_torch.ops.kernels import build
-from pesr_torch.ops.kernels.common import conv3x3_nhwc
+from pesr_torch.ops.kernels.common import conv3x3_nhwc, recompute_backward
 from pesr_torch.ops.kernels.resblock import CLUSTER, KERNEL_CHANNELS
 from pesr_torch.ops.pixel_shuffle import pixel_shuffle
 
@@ -47,15 +50,17 @@ def upsampler_stage_reference(x: torch.Tensor, w: torch.Tensor,
     return pixel_shuffle(conv3x3_nhwc(x, w.permute(3, 2, 0, 1), b), 2)
 
 
-def _packed_order(c: int) -> torch.Tensor:
+@functools.lru_cache(maxsize=None)
+def _packed_order(c: int, device: torch.device) -> torch.Tensor:
     """Packed column k -> torch-order column: group g, phase q, channel t
     (k = g*4n + q*n + t, n = 64 channels per group) reads column
     (g*n + t)*4 + q.  A width the kernel does not take (C % 64 != 0,
-    CPU path only) is one group of C channels."""
+    CPU path only) is one group of C channels.  Cached per device: a
+    training step packs every call."""
     n = _GROUP if c % _GROUP == 0 else c
     g, q, t = torch.meshgrid(torch.arange(c // n), torch.arange(4),
                              torch.arange(n), indexing="ij")
-    return ((g * n + t) * 4 + q).reshape(-1)
+    return ((g * n + t) * 4 + q).reshape(-1).to(device)
 
 
 def pack_upsampler_stage(w_hwio: torch.Tensor, b: torch.Tensor,
@@ -69,7 +74,7 @@ def pack_upsampler_stage(w_hwio: torch.Tensor, b: torch.Tensor,
     if tuple(w_hwio.shape) != (3, 3, c, 4 * c):
         raise ValueError(f"upsampler weights must be (3, 3, C, 4C), got "
                          f"{tuple(w_hwio.shape)}")
-    order = _packed_order(c).to(w_hwio.device)
+    order = _packed_order(c, w_hwio.device)
     wp = (w_hwio.detach().index_select(3, order).permute(0, 1, 3, 2)
           .to(dtype).contiguous())
     bp = b.detach().index_select(0, order).to(dtype).float().contiguous()
@@ -80,7 +85,7 @@ def unpack_upsampler_stage(wp: torch.Tensor, bp: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Inverse of :func:`pack_upsampler_stage` (layout and column order;
     not the dtype): torch-order HWIO weights and bias."""
-    inv = torch.argsort(_packed_order(wp.shape[3])).to(wp.device)
+    inv = torch.argsort(_packed_order(wp.shape[3], wp.device))
     return (wp.permute(0, 1, 3, 2).index_select(3, inv),
             bp.index_select(0, inv))
 
@@ -187,3 +192,33 @@ def fused_upsampler_stage(x: torch.Tensor, wp: torch.Tensor,
 
 
 fused_upsampler_stage.launches = 0
+
+
+class FusedUpsamplerStage(torch.autograd.Function):
+    """:func:`fused_upsampler_stage` with a backward (counterpart of the
+    JAX kernel's ``custom_vjp``, ``_upsampler_fwd`` / ``_upsampler_bwd``).
+
+    Takes the torch OIHW conv weight ``(4C, C, 3, 3)`` and bias ``(4C,)``
+    in x.dtype.  Forward: packs them (no grad) and runs the kernel; saves
+    ``x`` and the unpacked weights.  Backward: autograd of
+    :func:`upsampler_stage_reference`, recomputed from the saved tensors
+    in x.dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w, b)
+        return fused_upsampler_stage(x, *pack_upsampler_stage(
+            w.permute(2, 3, 1, 0), b, w.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(recompute_backward(
+            ctx, lambda x, w, b: upsampler_stage_reference(
+                x, w.permute(2, 3, 1, 0), b), g))
+
+
+def fused_upsampler_stage_train(x: torch.Tensor, w: torch.Tensor,
+                                b: torch.Tensor) -> torch.Tensor:
+    """Differentiable :func:`fused_upsampler_stage` on the OIHW weight and
+    bias in x.dtype (:class:`FusedUpsamplerStage`)."""
+    return FusedUpsamplerStage.apply(x, w, b)

@@ -8,7 +8,10 @@ through the hand-written kernels, writes PNGs into
     python -m pesr_torch.test --dataset synthetic --device cpu ...
 
 Weights: an EDSR-style ``.pth`` (``pesr_tpu.convert.save_generator_torch``
-writes one from a JAX checkpoint), or random init from ``--seed``.
+writes one from a JAX checkpoint), a checkpoint directory of
+``python -m pesr_torch.train`` (its newest ``step_<K>``, ``best/``, or
+any directory holding ``generator.pth``; the EMA copy is preferred), or
+random init from ``--seed``.
 """
 
 from __future__ import annotations
@@ -20,20 +23,22 @@ import time
 import torch
 
 from pesr_torch.config import Opts, opts_from_args
-from pesr_torch.convert import load_generator_pth
+from pesr_torch.convert import load_generator_pth, state_dict_from_torch
 from pesr_torch.data.datasets import host_bicubic_resize, load_eval_set
 from pesr_torch.metrics import calc_psnr, calc_ssim
 from pesr_torch.models.generator import Generator
 from pesr_torch.models.kernel_apply import KernelApply
 from pesr_torch.ops.tiling import BatchTiledUpscaler, WholeImageUpscaler
+from pesr_torch.training.checkpoint import restore_generator_params
 from pesr_torch.utils.device import resolve_device
 from pesr_torch.utils.image_io import imwrite_uint8
 from pesr_torch.utils.logging import AverageMeter
 
 
 def build_generator(opts: Opts, device: torch.device) -> Generator:
-    """The generator of ``opts``, with weights from ``--model_path`` or
-    random init from ``--seed``."""
+    """The generator of ``opts``, with weights from ``--model_path`` (a
+    ``.pth`` or a port checkpoint directory) or random init from
+    ``--seed``."""
     arch = dict(scale=opts.scale, num_blocks=opts.num_blocks,
                 num_channels=opts.num_channels, res_scale=opts.res_scale,
                 device=device)
@@ -43,17 +48,30 @@ def build_generator(opts: Opts, device: torch.device) -> Generator:
         print("WARNING: no --model_path; using randomly-initialized "
               "generator")
         return gen
-    if os.path.isdir(path) or not path.endswith((".pth", ".pt")):
+    sd = None
+    if os.path.isdir(path):
+        try:
+            sd, step = restore_generator_params(path)
+        except FileNotFoundError:
+            pass
+    if sd is None and (os.path.isdir(path)
+                       or not path.endswith((".pth", ".pt"))):
         raise SystemExit(
             f"--model_path {path}: pesr_torch loads torch .pth/.pt files "
-            f"only.  An orbax checkpoint directory needs JAX; convert it "
-            f"once with pesr_tpu.convert.save_generator_torch (CLI: python "
-            f"-m pesr_tpu.convert {path} out.pth --to_torch --scale "
+            f"and its own training checkpoints only.  An orbax checkpoint "
+            f"directory needs JAX; convert it once with "
+            f"pesr_tpu.convert.save_generator_torch (CLI: python -m "
+            f"pesr_tpu.convert {path} out.pth --to_torch --scale "
             f"{opts.scale})")
     gen = Generator(**arch, seed=None)
-    gen.load_state_dict(load_generator_pth(path, opts.num_blocks, opts.scale),
-                        strict=True)
-    print(f"loaded torch generator from {path}")
+    if sd is None:
+        gen.load_state_dict(load_generator_pth(path, opts.num_blocks,
+                                               opts.scale), strict=True)
+        print(f"loaded torch generator from {path}")
+    else:
+        gen.load_state_dict(state_dict_from_torch(sd, opts.num_blocks,
+                                                  opts.scale), strict=True)
+        print(f"loaded pesr_torch checkpoint (step {step}) from {path}")
     return gen
 
 

@@ -31,10 +31,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               ones; kernel times at the training shapes; one pretrain
               step of the kernel path (bf16) against the plain f32
               ``Generator`` from the same weights and batch; a profile of
-              one step; then ``run_training`` on ``synthetic`` for a few
+              one step; then ``run_training`` on ``synthetic`` for 2
               epochs with self-validation and snapshots: the loss falls,
               launch counts per forward, steps/s and HR MP/s, and the best
               snapshot reloads through ``pesr_torch.test``.
+5. gan     -- the GAN fine-tune at the flagship recipe and the JAX
+              package's defaults (RSGAN, alpha_vgg 50, alpha_gan 1,
+              alpha_tv 1e-6; the SRGAN discriminator, 64-512 with dense
+              1024; VGG54 with random weights from the seed): one GAN step
+              of the kernel path (bf16) against the plain step (plain
+              ``Generator``, D and VGG in f32) on the same weights and
+              batch, and planted wiring faults that must fail the same
+              limits; launch counts over 5 steps (one generator forward per
+              step); host queue time against device time and a profile of
+              one step by network; then ``run_training --phase train``
+              from the train phase's ``best/`` for 2 epochs with
+              self-validation and snapshots (finite losses, launch counts,
+              steps/s, ``discriminator.pth``, ``best/`` reloaded by
+              ``pesr_torch.test``).
 
 Prints a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or pesr_tpu.
@@ -42,6 +56,7 @@ Prints a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -391,14 +406,26 @@ def print_times(rb: dict, up1: dict, up2: dict, card: str) -> None:
               f"= {gb / r['ms']:.2f} TB/s at the median time", flush=True)
 
 
+def kernel_shares(events, group_of) -> dict:
+    """``{group: device us}`` over every kernel that the profile's
+    ``events`` launched, each under ``group_of(event, kernel name)``."""
+    shares = {}
+    for e in events:
+        for k in getattr(e, "kernels", []):
+            g = group_of(e, k.name)
+            shares[g] = shares.get(g, 0) + k.duration
+    return shares
+
+
 def profile_breakdown(fn, card: str, top: int = 8, group=None,
                       host_top: int = 0) -> dict:
     """Where the time of one ``fn()`` goes on the device: torch.profiler
     self device time by kernel, and the device's busy share of the wall
     time (the rest is host work, transfers and launch gaps).  ``group``
-    maps a kernel name to a group; the shares of the groups are printed
-    and returned.  ``host_top``: also print the device launches and the
-    host ops with the most self CPU time."""
+    maps the profile's events to ``{group: device us}`` (as
+    :func:`kernel_shares` does); the shares of the groups are printed and
+    returned.  ``host_top``: also print the device launches
+    and the host ops with the most self CPU time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -438,10 +465,8 @@ def profile_breakdown(fn, card: str, top: int = 8, group=None,
         print(f"    {100 * dev_us(e) / max(busy, 1):5.1f}%  "
               f"{dev_us(e) / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}",
               flush=True)
-    shares = {}
-    if group is not None:
-        for e in events:
-            shares[group(e.key)] = shares.get(group(e.key), 0) + dev_us(e)
+    shares = group(prof.events()) if group is not None else {}
+    if shares:
         for g, us in sorted(shares.items(), key=lambda kv: -kv[1]):
             print(f"    group {g}: {us / 1e3:.3f} ms = "
                   f"{100 * us / max(busy, 1):.1f}% of device time",
@@ -658,8 +683,12 @@ def step_agreement(opts, step, batch, ref, fault=None):
     return abs(float(m["l1"]) - ref[0]), cos, name, state
 
 
+def _ours(key: str) -> bool:
+    return "resblock_kernel<" in key or "upsampler_kernel<" in key
+
+
 def _profile_group(key: str) -> str:
-    if "resblock_kernel<" in key or "upsampler_kernel<" in key:
+    if _ours(key):
         return "forward kernels (ours)"
     k = key.lower()
     if any(t in k for t in ("conv", "xmma", "cudnn", "wgrad", "dgrad",
@@ -669,7 +698,27 @@ def _profile_group(key: str) -> str:
     return "everything else (Adam, casts, losses, LR synthesis, copies)"
 
 
-def phase_train(card: str) -> dict:
+def steady_rate(recs, after_step: int, card: str) -> float:
+    """Steps/s of the logged windows that end after ``after_step`` (the
+    first epoch): their steps over the sum of their seconds, each
+    window's seconds its steps over its ``steps_per_s``.  Prints each
+    window's rate too."""
+    steady = [r for r in recs if r["step"] > after_step]
+    steps, secs, prev = 0, 0.0, after_step
+    for r in steady:
+        steps += r["step"] - prev
+        secs += (r["step"] - prev) / r["steps_per_s"]
+        prev = r["step"]
+    print(f"  steps/s of the {len(steady)} windows after step {after_step}: "
+          f"{[round(r['steps_per_s'], 3) for r in steady]}; together "
+          f"{steps} steps in {secs:.3f} s = {steps / secs:.3f} steps/s "
+          f"[{card}]", flush=True)
+    return steps / secs
+
+
+def phase_train(card: str, workdir: str) -> dict:
+    """The pretrain path; its ``run_training`` writes its snapshots under
+    ``workdir`` (the GAN phase starts from its ``best/``)."""
     import torch
     from pesr_torch import test as cli
     from pesr_torch.config import Opts
@@ -749,78 +798,408 @@ def phase_train(card: str) -> dict:
           f"{sorted(host_ms)[2]:.2f} ms, it ends {sorted(wall_ms)[2]:.2f} ms "
           f"after it starts (medians of 5) [{card}]", flush=True)
     prof = profile_breakdown(lambda: step(state_k, lr_img, hr_img), card,
-                             top=10, group=_profile_group, host_top=8)
+                             top=10, host_top=8,
+                             group=lambda ev: kernel_shares(
+                                 ev, lambda e, k: _profile_group(k)))
     prof["host_ms"], prof["step_ms"] = sorted(host_ms)[2], sorted(wall_ms)[2]
     del state_k
     torch.cuda.empty_cache()
 
-    with tempfile.TemporaryDirectory() as tmp:
-        spe, epochs, log_every = 20, 3, 10
-        print(f"[train] run_training: {BLOCKS}x{c} x{SCALE}, batch {bt}, "
-              f"patch {p}, synthetic, {epochs} epochs x {spe} steps, eval "
-              f"on 2 synthetic images each epoch", flush=True)
-        topts = Opts(scale=SCALE, num_blocks=BLOCKS, num_channels=c,
-                     batch_size=bt, patch_size=p, train_dataset="synthetic",
-                     valid_dataset="synthetic", num_valids=2,
-                     steps_per_epoch=spe, num_epochs=epochs,
-                     log_every=log_every, snapshot_every=1, keep_snapshots=1,
-                     check_point=os.path.join(tmp, "ckpt"), device="cuda")
-        print("[train] the eval forwards' tile batches, C = "
-              f"{c}", flush=True)
-        for b, th, tw in eval_tile_batches(topts):
-            check_resblock(b, th, tw, c, 0.1, seed=14)
-            check_upsampler(b, th, tw, c, seed=15)
-            check_upsampler(b, 2 * th, 2 * tw, c, seed=16)
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        summary = run_training(topts)
-        run_s = time.perf_counter() - t0
-        counts = kernels.launch_counts()
-        fwd = summary["train_forwards"] + summary["eval_forwards"]
-        want = {"fused_resblock": BLOCKS * fwd,
-                "fused_upsampler_stage": 2 * fwd}
-        print(f"  run_training: {summary['train_forwards']} training + "
-              f"{summary['eval_forwards']} eval forwards, launches {counts}"
-              f" (expected {want})", flush=True)
-        if summary["train_forwards"] != spe * epochs or counts != want:
-            fail(f"run_training: launch counts {counts} != {want}")
-        with open(os.path.join(topts.check_point, "pretrain.jsonl")) as f:
-            recs = [r for r in map(json.loads, f) if "l1" in r]
-        l1s = [r["l1"] for r in recs]
-        print(f"  L1 per {log_every}-step window: "
-              f"{[round(v, 5) for v in l1s]}", flush=True)
-        if not all(map(math.isfinite, l1s)) or not l1s[-1] < l1s[0]:
-            fail(f"run_training: the L1 loss did not fall ({l1s})")
-        steady = recs[spe // log_every:]   # after the first epoch
-        sps = sorted(r["steps_per_s"] for r in steady)[len(steady) // 2]
-        mps = sorted(r["mpx_per_s"] for r in steady)[len(steady) // 2]
-        run_sps = summary["steps"] / run_s
-        run_mps = run_sps * bt * (p * SCALE) ** 2 / 1e6
-        print(f"  training throughput (median of {len(steady)} windows "
-              f"after the first epoch): {sps:.3f} steps/s, {mps:.3f} HR "
-              f"MP/s at batch {bt} x {p * SCALE}^2 on {card}", flush=True)
-        print(f"  over the whole run_training call ({summary['steps']} "
-              f"steps in {run_s:.2f} s: set-up, warm-up, {epochs} evals "
-              f"and snapshots included): {run_sps:.3f} steps/s, "
-              f"{run_mps:.3f} HR MP/s on {card}", flush=True)
-        best = os.path.join(topts.check_point, "best")
-        if not os.path.isfile(os.path.join(best, "generator.pth")):
-            fail("run_training wrote no best/generator.pth")
-        res = cli.run(["--dataset", "synthetic", "--scale", str(SCALE),
-                       "--num_blocks", str(BLOCKS), "--num_channels",
-                       str(c), "--model_path", best, "--output_dir",
-                       os.path.join(tmp, "out")])
-        if not math.isfinite(res["psnr"]):
-            fail(f"best/generator.pth through pesr_torch.test: PSNR "
-                 f"{res['psnr']}")
-        print(f"  best/ (val_psnr {summary.get('best_psnr')}) reloads "
-              f"through pesr_torch.test: PSNR {res['psnr']:.3f} dB",
-              flush=True)
+    spe, epochs, log_every = 20, 2, 10
+    print(f"[train] run_training: {BLOCKS}x{c} x{SCALE}, batch {bt}, "
+          f"patch {p}, synthetic, {epochs} epochs x {spe} steps, eval "
+          f"on 2 synthetic images each epoch", flush=True)
+    topts = Opts(scale=SCALE, num_blocks=BLOCKS, num_channels=c,
+                 batch_size=bt, patch_size=p, train_dataset="synthetic",
+                 valid_dataset="synthetic", num_valids=2,
+                 steps_per_epoch=spe, num_epochs=epochs,
+                 log_every=log_every, snapshot_every=1, keep_snapshots=1,
+                 check_point=os.path.join(workdir, "pretrain"), device="cuda")
+    print("[train] the eval forwards' tile batches, C = "
+          f"{c}", flush=True)
+    for b, th, tw in eval_tile_batches(topts):
+        check_resblock(b, th, tw, c, 0.1, seed=14)
+        check_upsampler(b, th, tw, c, seed=15)
+        check_upsampler(b, 2 * th, 2 * tw, c, seed=16)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = run_training(topts)
+    run_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    fwd = summary["train_forwards"] + summary["eval_forwards"]
+    want = {"fused_resblock": BLOCKS * fwd,
+            "fused_upsampler_stage": 2 * fwd}
+    print(f"  run_training: {summary['train_forwards']} training + "
+          f"{summary['eval_forwards']} eval forwards, launches {counts}"
+          f" (expected {want})", flush=True)
+    if summary["train_forwards"] != spe * epochs or counts != want:
+        fail(f"run_training: launch counts {counts} != {want}")
+    with open(os.path.join(topts.check_point, "pretrain.jsonl")) as f:
+        recs = [r for r in map(json.loads, f) if "l1" in r]
+    l1s = [r["l1"] for r in recs]
+    print(f"  L1 per {log_every}-step window: "
+          f"{[round(v, 5) for v in l1s]}", flush=True)
+    if not all(map(math.isfinite, l1s)) or not l1s[-1] < l1s[0]:
+        fail(f"run_training: the L1 loss did not fall ({l1s})")
+    sps = steady_rate(recs, spe, card)
+    mps = sps * bt * (p * SCALE) ** 2 / 1e6
+    run_sps = summary["steps"] / run_s
+    run_mps = run_sps * bt * (p * SCALE) ** 2 / 1e6
+    print(f"  training throughput after the first epoch: {sps:.3f} "
+          f"steps/s, {mps:.3f} HR MP/s at batch {bt} x {p * SCALE}^2 on "
+          f"{card}", flush=True)
+    print(f"  over the whole run_training call ({summary['steps']} "
+          f"steps in {run_s:.2f} s: set-up, warm-up, {epochs} evals "
+          f"and snapshots included): {run_sps:.3f} steps/s, "
+          f"{run_mps:.3f} HR MP/s on {card}", flush=True)
+    best = os.path.join(topts.check_point, "best")
+    if not os.path.isfile(os.path.join(best, "generator.pth")):
+        fail("run_training wrote no best/generator.pth")
+    res = cli.run(["--dataset", "synthetic", "--scale", str(SCALE),
+                   "--num_blocks", str(BLOCKS), "--num_channels",
+                   str(c), "--model_path", best, "--output_dir",
+                   os.path.join(workdir, "out")])
+    if not math.isfinite(res["psnr"]):
+        fail(f"best/generator.pth through pesr_torch.test: PSNR "
+             f"{res['psnr']}")
+    print(f"  best/ (val_psnr {summary.get('best_psnr')}) reloads "
+          f"through pesr_torch.test: PSNR {res['psnr']:.3f} dB",
+          flush=True)
     return {"fused_resblock": rb, "fused_upsampler_stage": up2,
             "upsampler_stage1": up1, "launches": counts,
             "launches_per_step": per_step, "steps_per_s": sps,
             "mpx_per_s": mps, "run_steps_per_s": run_sps, "profile": prof,
-            "l1": l1s}
+            "l1": l1s, "best": best}
+
+
+# GAN phase: one flagship GAN step at the JAX defaults (RSGAN, alpha_vgg
+# 50, alpha_gan 1, alpha_tv 1e-6, no GP), the SRGAN discriminator (64-512,
+# dense 1024) and VGG54 with random weights from the seed; kernel path (G,
+# D and VGG in bf16) vs the plain step (G, D and VGG in f32, TF32 off).
+# First sound reading on the H100: |d d_loss| 8.2e-4, |d g_loss| 6.5e-3
+# (g_loss ~20: the random D's logits are far apart), least cosine 0.952
+# over G's tensors (a conv bias: a sum over every pixel of a gradient
+# that passed D's 8 bf16 convs and norms) and 0.973 over D's.  The
+# limits are ~3-4x those (in 1 - cosine for the cosines); the planted
+# faults read |d d_loss| >= 5.2e-2 and cosines <= 0.72.
+GAN_LIMITS = {"d_loss": 3e-3, "g_loss": 2.5e-2, "cos_g": 0.85, "cos_d": 0.9}
+# Wiring faults planted in the kernel path's step only (the plain one
+# stays sound); the step check fails if any of them passes GAN_LIMITS.
+GAN_FAULTS = ("HR and SR through D as one concatenated batch",
+              "D fed H and W swapped", "res_scale applied twice")
+GAN_SPE, GAN_EPOCHS, GAN_LOG_EVERY = 20, 2, 10
+
+
+def _gan_opts(**kw):
+    from pesr_torch.config import Opts
+    return Opts(scale=SCALE, num_blocks=BLOCKS, num_channels=CHANNELS,
+                batch_size=TRAIN_BATCH, patch_size=TRAIN_PATCH,
+                phase="train", device="cuda", **kw)
+
+
+def _gan_state(opts, g0, d0, vgg, plain=False):
+    """A GAN train state on the card from the initial weights ``g0`` /
+    ``d0`` (state_dicts), D computing in ``opts.compute_dtype``;
+    ``plain``: the plain ``Generator`` forward instead of the kernels."""
+    import torch
+    from pesr_torch.models.discriminator import Discriminator
+    from pesr_torch.models.generator import Generator
+    from pesr_torch.training.state import (COMPUTE_DTYPES, add_discriminator,
+                                           create_generator_state)
+    dev = torch.device("cuda")
+    gen = Generator(SCALE, BLOCKS, CHANNELS, device=dev, seed=None)
+    gen.load_state_dict(g0)
+    state = create_generator_state(opts, dev, gen)
+    if plain:
+        state.apply = gen
+    d = Discriminator(opts.hr_patch_size,
+                      dtype=COMPUTE_DTYPES[opts.compute_dtype], device=dev,
+                      seed=None)
+    d.load_state_dict(d0)
+    add_discriminator(state, opts, dev, d)
+    state.vgg = vgg
+    return state
+
+
+def _plant_gan_fault(state, fault: str, hr) -> None:
+    """Plant one of GAN_FAULTS in ``state``, in place."""
+    import torch
+    if fault == "res_scale applied twice":
+        _plant_fault(state.generator, fault)
+        return
+    inner_apply, box = state.apply, {}
+
+    def apply(x):
+        box["sr"] = inner_apply(x)
+        return box["sr"]
+
+    class Faulty(torch.nn.Module):
+        def __init__(self, d):
+            super().__init__()
+            self.d = d
+
+        def forward(self, x):
+            if fault.startswith("D fed"):
+                return self.d(x.transpose(1, 2))
+            # each call runs D on [HR; SR] and keeps its own half
+            other = (box["sr"].detach() if x.data_ptr() == hr.data_ptr()
+                     else hr)
+            return self.d(torch.cat([x, other]))[:x.shape[0]]
+
+    state.apply = apply
+    state.discriminator = Faulty(state.discriminator)
+
+
+def gan_step_agreement(step, batch, ref, state) -> dict:
+    """One GAN step on ``state`` against the plain step's ``ref`` (its
+    metrics and {network: {parameter: gradient}}): |d d_loss|, |d g_loss|
+    and the least gradient cosine over G's and over D's tensors (D's
+    tensors whose f32 gradient is rounding noise, 0 by construction, are
+    left out and named)."""
+    import torch
+    m = step(state, *batch)
+    out = {k: abs(float(m[k]) - ref["metrics"][k])
+           for k in ("d_loss", "g_loss")}
+    d = state.discriminator
+    d = getattr(d, "d", d)
+    for net, mod in (("g", state.generator), ("d", d)):
+        grads = ref["grads"][net]
+        norms = {n: float(g.norm()) for n, g in grads.items()}
+        keep = [n for n in grads if norms[n] > 1e-4 * max(norms.values())]
+        out[f"cos_{net}"], out[f"worst_{net}"] = min(
+            (float(torch.nn.functional.cosine_similarity(
+                p.grad.flatten(), grads[n].flatten(), dim=0)), n)
+            for n, p in mod.named_parameters() if n in keep)
+        out[f"skipped_{net}"] = sorted(set(grads) - set(keep))
+    return out
+
+
+def _gan_within(r: dict) -> bool:
+    return (r["d_loss"] <= GAN_LIMITS["d_loss"]
+            and r["g_loss"] <= GAN_LIMITS["g_loss"]
+            and r["cos_g"] >= GAN_LIMITS["cos_g"]
+            and r["cos_d"] >= GAN_LIMITS["cos_d"])
+
+
+def _gan_profile_groups(events) -> dict:
+    """Device time of one GAN step by network, from the profile's event
+    tree: a kernel belongs to the ``gan::`` range its op ran in, or, in
+    the backward, to the range of the forward op whose autograd node
+    launched it (matched by sequence number); Adam by its range; our
+    forward kernels by name."""
+    ranges = {"gan::G": "G: cuDNN backward, recompute, head/tail/out",
+              "gan::D": "D: both applications, backward, penalty",
+              "gan::VGG": "VGG: SR and HR forwards, backward to SR"}
+    seq = {}
+
+    def forward_range(e):
+        while e is not None:
+            if e.name in ranges:
+                return ranges[e.name]
+            e = e.cpu_parent
+        return None
+
+    for e in events:
+        g = forward_range(e)
+        if g is not None and e.sequence_nr >= 0:
+            seq[e.sequence_nr] = g
+
+    def group(e):
+        while e is not None:
+            if e.name in ranges:
+                return ranges[e.name]
+            if e.name.startswith("Optimizer.step"):
+                return "Adam (G and D)"
+            if (e.name.startswith("autograd::engine::evaluate_function")
+                    and e.sequence_nr in seq):
+                return seq[e.sequence_nr]
+            e = e.cpu_parent
+        return "the rest: losses, casts, EMA, zeroing"
+
+    return kernel_shares(events, lambda e, k: ("forward kernels (ours)"
+                                               if _ours(k) else group(e)))
+
+
+def _named(state):
+    """``state`` with G's apply, D and VGG each running inside a
+    ``gan::`` profiler range (for :func:`_gan_profile_groups`)."""
+    import torch
+    from torch.profiler import record_function
+
+    class Named(torch.nn.Module):
+        def __init__(self, name, mod):
+            super().__init__()
+            self.name, self.mod = name, mod
+
+        def forward(self, x):
+            with record_function(self.name):
+                return self.mod(x)
+
+    inner = state.apply
+
+    def apply(x):
+        with record_function("gan::G"):
+            return inner(x)
+
+    return dataclasses.replace(
+        state, apply=apply,
+        discriminator=Named("gan::D", state.discriminator),
+        vgg=Named("gan::VGG", state.vgg))
+
+
+def phase_gan(card: str, pretrained: str, workdir: str) -> dict:
+    import torch
+    from pesr_torch import test as cli
+    from pesr_torch.models.discriminator import Discriminator
+    from pesr_torch.models.generator import Generator
+    from pesr_torch.ops import kernels
+    from pesr_torch.training.loop import run_training
+    from pesr_torch.training.state import init_vgg
+    from pesr_torch.training.steps import make_gan_step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opts = _gan_opts()
+    opts32 = _gan_opts(compute_dtype="float32")
+    bt, p = TRAIN_BATCH, TRAIN_PATCH
+    print(f"[gan] one GAN step at {BLOCKS}x{CHANNELS} x{SCALE}, batch {bt}, "
+          f"patch {p}: {opts.gan_type}, alpha vgg {opts.alpha_vgg} (VGG"
+          f"{opts.vgg_layer}, random weights) gan {opts.alpha_gan} tv "
+          f"{opts.alpha_tv}, D 64-512 dense 1024; kernel path (bf16) vs "
+          f"plain Generator with D and VGG in f32", flush=True)
+    dev = torch.device("cuda")
+    g0 = Generator(SCALE, BLOCKS, CHANNELS, device=dev, seed=0).state_dict()
+    d0 = Discriminator(opts.hr_patch_size, device=dev,
+                       seed=opts.seed + 1).state_dict()
+    vgg16 = init_vgg(opts, dev)
+    step = make_gan_step(opts)
+    batch = _train_batch(seed=1)
+    plain = _gan_state(opts32, g0, d0, init_vgg(opts32, dev), plain=True)
+    m = make_gan_step(opts32)(plain, *batch)
+    ref = {"metrics": {k: float(v) for k, v in m.items()},
+           "grads": {"g": {n: q.grad for n, q in
+                           plain.generator.named_parameters()},
+                     "d": {n: q.grad for n, q in
+                           plain.discriminator.named_parameters()}}}
+    del plain
+    torch.cuda.empty_cache()
+    print(f"  plain step: {json.dumps(ref['metrics'])}", flush=True)
+    state = _gan_state(opts, g0, d0, vgg16)
+    r = gan_step_agreement(step, batch, ref, state)
+    print(f"  kernel path: |d d_loss| {r['d_loss']:.3e}, |d g_loss| "
+          f"{r['g_loss']:.3e}; least gradient cosine over G's tensors "
+          f"{r['cos_g']:.6f} ({r['worst_g']}), over D's {r['cos_d']:.6f} "
+          f"({r['worst_d']}; left out as rounding noise: "
+          f"{r['skipped_d']}); limits {GAN_LIMITS}", flush=True)
+    if not _gan_within(r):
+        fail("the kernel path's GAN step disagrees with the plain step")
+    readings = {"sound": r}
+    for fault in GAN_FAULTS:
+        f_state = _gan_state(opts, g0, d0, vgg16)
+        _plant_gan_fault(f_state, fault, batch[1])
+        f = gan_step_agreement(step, batch, ref, f_state)
+        readings[fault] = f
+        print(f"  planted fault '{fault}': |d d_loss| {f['d_loss']:.3e}, "
+              f"|d g_loss| {f['g_loss']:.3e}, cosine G {f['cos_g']:.6f} "
+              f"({f['worst_g']}), D {f['cos_d']:.6f} ({f['worst_d']})",
+              flush=True)
+        if _gan_within(f):
+            fail(f"the GAN step limits pass the planted fault '{fault}'")
+        del f_state
+    torch.cuda.empty_cache()
+
+    lr_img, hr_img = batch
+    host_ms, wall_ms = [], []
+    kernels.reset_launch_counts()
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, lr_img, hr_img)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        wall_ms.append(1e3 * (time.perf_counter() - t0))
+    counts = kernels.launch_counts()
+    if counts != {"fused_resblock": 5 * BLOCKS, "fused_upsampler_stage": 10}:
+        fail(f"launches in 5 GAN steps: {counts} (one generator forward "
+             f"per step gives {5 * BLOCKS} and 10)")
+    per_step = {k: v // 5 for k, v in counts.items()}
+    print(f"  launches in 5 GAN steps: {counts}: one generator forward per "
+          f"step", flush=True)
+    print(f"  one GAN step from an idle device: the host queues it in "
+          f"{sorted(host_ms)[2]:.2f} ms, it ends {sorted(wall_ms)[2]:.2f} ms "
+          f"after it starts (medians of 5) [{card}]", flush=True)
+    named = _named(state)
+    prof = profile_breakdown(lambda: step(named, lr_img, hr_img), card,
+                             top=10, host_top=8, group=_gan_profile_groups)
+    prof["host_ms"], prof["step_ms"] = sorted(host_ms)[2], sorted(wall_ms)[2]
+    del state, named
+    torch.cuda.empty_cache()
+
+    print(f"[gan] run_training --phase train from {pretrained}: "
+          f"{GAN_EPOCHS} epochs x {GAN_SPE} steps, eval on 2 synthetic "
+          f"images each epoch", flush=True)
+    topts = _gan_opts(pretrained_model=pretrained, train_dataset="synthetic",
+                      valid_dataset="synthetic", num_valids=2,
+                      steps_per_epoch=GAN_SPE, num_epochs=GAN_EPOCHS,
+                      log_every=GAN_LOG_EVERY, snapshot_every=1,
+                      keep_snapshots=1,
+                      check_point=os.path.join(workdir, "gan"))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = run_training(topts)
+    run_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    fwd = summary["train_forwards"] + summary["eval_forwards"]
+    want = {"fused_resblock": BLOCKS * fwd, "fused_upsampler_stage": 2 * fwd}
+    print(f"  run_training: {summary['train_forwards']} training + "
+          f"{summary['eval_forwards']} eval forwards, launches {counts} "
+          f"(expected {want})", flush=True)
+    if summary["train_forwards"] != GAN_SPE * GAN_EPOCHS or counts != want:
+        fail(f"GAN run_training: launch counts {counts} != {want}")
+    with open(os.path.join(topts.check_point, "train.jsonl")) as f:
+        recs = [r for r in map(json.loads, f) if "d_loss" in r]
+    for k in ("d_loss", "g_loss", "g_gan", "vgg", "psnr"):
+        vals = [r[k] for r in recs]
+        print(f"  {k} per {GAN_LOG_EVERY}-step window: "
+              f"{[round(v, 5) for v in vals]}", flush=True)
+        if not vals or not all(map(math.isfinite, vals)):
+            fail(f"GAN run_training: {k} is not finite ({vals})")
+    sps = steady_rate(recs, GAN_SPE, card)
+    mps = sps * bt * (p * SCALE) ** 2 / 1e6
+    run_sps = summary["steps"] / run_s
+    print(f"  GAN training throughput after the first epoch: {sps:.3f} "
+          f"steps/s, {mps:.3f} HR MP/s at batch {bt} x {p * SCALE}^2 on "
+          f"{card}", flush=True)
+    print(f"  over the whole run_training call ({summary['steps']} steps in "
+          f"{run_s:.2f} s: set-up, warm-up, {GAN_EPOCHS} evals and "
+          f"snapshots included): {run_sps:.3f} steps/s, "
+          f"{run_sps * bt * (p * SCALE) ** 2 / 1e6:.3f} HR MP/s on {card}",
+          flush=True)
+    best = os.path.join(topts.check_point, "best")
+    last = os.path.join(topts.check_point, f"step_{summary['steps']}")
+    for snap in (best, last):
+        if not os.path.isfile(os.path.join(snap, "discriminator.pth")):
+            fail(f"GAN run_training wrote no {snap}/discriminator.pth")
+    # With random VGG the losses cannot tell a working G update from a
+    # missing one; G's weights moving away from the pretrained ones can.
+    g_from, g_to = (torch.load(os.path.join(d, "generator.pth"),
+                               weights_only=True)
+                    for d in (pretrained, last))
+    moved = max(float((g_to[k] - v).abs().max()) for k, v in g_from.items())
+    print(f"  G's largest weight change over the GAN run: {moved:.3e}",
+          flush=True)
+    if not moved > 0.0:
+        fail("GAN run_training left the generator's weights unchanged")
+    res = cli.run(["--dataset", "synthetic", "--scale", str(SCALE),
+                   "--num_blocks", str(BLOCKS), "--num_channels",
+                   str(CHANNELS), "--model_path", best, "--output_dir",
+                   os.path.join(workdir, "gan_out")])
+    if not math.isfinite(res["psnr"]):
+        fail(f"GAN best/ through pesr_torch.test: PSNR {res['psnr']}")
+    print(f"  GAN best/ (val_psnr {summary.get('best_psnr')}) reloads "
+          f"through pesr_torch.test: PSNR {res['psnr']:.3f} dB", flush=True)
+    return {"launches_per_step": per_step, "readings": readings,
+            "profile": prof, "steps_per_s": sps, "mpx_per_s": mps,
+            "run_steps_per_s": run_sps}
 
 
 def main() -> int:
@@ -844,7 +1223,9 @@ def main() -> int:
     print(card, flush=True)
     ker = phase_kernels(card)
     main_res = phase_main(card)
-    train_res = phase_train(card)
+    with tempfile.TemporaryDirectory() as workdir:
+        train_res = phase_train(card, workdir)
+        gan_res = phase_gan(card, train_res["best"], workdir)
     sources = {"fused_resblock": ("pesr_torch/csrc/resblock.cu",
                                   "pesr_tpu/ops/pallas/resblock.py:96"),
                "fused_upsampler_stage": ("pesr_torch/csrc/upsampler.cu",
@@ -860,7 +1241,8 @@ def main() -> int:
          "train_launches_per_step": train_res["launches_per_step"][name],
          "train_ms": train_res[name]["ms"],
          "train_bound_ms": train_res[name]["bound_ms"],
-         "train_library_ms": train_res[name]["library_ms"]}
+         "train_library_ms": train_res[name]["library_ms"],
+         "gan_launches_per_step": gan_res["launches_per_step"][name]}
         for name, (src, rep) in sources.items()]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

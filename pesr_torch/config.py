@@ -1,14 +1,16 @@
 """Options of the port: the test-mode and train-mode subsets of
 ``pesr_tpu/config.py``.
 
-Flags the port does not implement yet are not in the parsers, so argparse
-rejects them instead of ignoring them: in test mode ``--quant``,
-``--fold``, ``--self_ensemble``, ``--mesh_shape``, ``--export_artifact``,
-...; in train mode the GAN-loss flags, ``--phase train/qat``,
-``--fold_train``, ``--mesh_shape``, ``--distributed``, ``--profile_dir``,
-``--eval_pi``, ``--trim_host_heap``, ``--vgg_weights``, ...  The port
-always runs its kernels (no ``--use_pallas``) and its recompute backward
-keeps only each block's input (no ``--remat``).
+Train mode has both phases of the JAX package, ``--phase pretrain`` and
+``--phase train`` (the GAN fine-tune, with JAX's loss flags, names and
+defaults, the ``--no_`` twins of its on/off flags included).  Flags the
+port does not implement yet are not in the parsers, so argparse rejects
+them instead of ignoring them: in test mode ``--quant``, ``--fold``,
+``--self_ensemble``, ``--mesh_shape``, ``--export_artifact``, ...; in
+train mode ``--phase qat``, ``--fold_train``, ``--mesh_shape``,
+``--distributed``, ``--profile_dir``, ``--eval_pi``, ``--trim_host_heap``,
+...  The port always runs its kernels (no ``--use_pallas``) and its
+recompute backward keeps only each block's input (no ``--remat``).
 """
 
 from __future__ import annotations
@@ -37,8 +39,9 @@ class Opts:
     batch_size: int = 16
     num_repeats: int = 20         # epoch = image list x num_repeats
     # training
-    phase: str = "pretrain"
+    phase: str = "pretrain"       # "pretrain" (L1) | "train" (GAN)
     pretrained_model: str = ""
+    pretrained_d: str = ""        # discriminator init for the GAN phase
     learning_rate: float = 1e-4
     lr_step: int = 120            # epochs between x0.5 LR decays
     num_epochs: int = 300
@@ -47,6 +50,18 @@ class Opts:
     ema_decay: float = 0.0        # 0 = off
     grad_accum: int = 1           # microbatches per optimizer step
     compute_dtype: str = "bfloat16"  # the kernels take bf16; f32 on the CPU
+    # GAN losses (phase "train")
+    gan_type: str = "RSGAN"       # RSGAN | RaSGAN | RaLSGAN | LSGAN | GAN
+    use_gp: bool = False          # gradient penalty on D (weight 10)
+    spectral_norm: bool = False   # stateless spectral norm on D's convs
+    focal_loss: bool = False
+    fl_gamma: float = 1.0
+    alpha_vgg: float = 50.0
+    alpha_gan: float = 1.0
+    alpha_tv: float = 1e-6
+    alpha_l1: float = 0.0
+    vgg_layer: str = "54"         # conv5_4 pre-activation ("VGG54")
+    vgg_weights: str = ""         # torchvision-layout VGG-19 .pth
     # checkpoints / logging
     check_point: str = "check_point/pesr"
     snapshot_every: int = 10      # epochs between snapshots (0 = last only)
@@ -74,6 +89,14 @@ def _tile_size(value: str):
     return int(value)
 
 
+def _add_bool_flag(g, name: str, default: bool, help_: str) -> None:
+    """An on/off flag ``--name`` with its ``--no_name`` twin."""
+    g.add_argument(f"--{name}", dest=name, action="store_true",
+                   default=default, help=help_)
+    g.add_argument(f"--no_{name}", dest=name, action="store_false",
+                   help=argparse.SUPPRESS)
+
+
 def _add_model_flags(p: argparse.ArgumentParser, d: Opts) -> None:
     g = p.add_argument_group("model")
     g.add_argument("--scale", type=int, default=d.scale,
@@ -89,9 +112,10 @@ def build_parser(mode: str = "test") -> argparse.ArgumentParser:
     d = Opts()
     desc = {"test": "pesr_torch inference: tiled x-scale SR of an eval set "
                     "on the H100 kernels, PNGs out, PSNR/SSIM printed",
-            "train": "pesr_torch training: the L1 pretrain phase on the "
-                     "H100 kernels, with PSNR/SSIM self-validation and "
-                     "snapshots"}[mode]
+            "train": "pesr_torch training on the H100 kernels: the L1 "
+                     "pretrain phase or the GAN fine-tune (discriminator, "
+                     "VGG perceptual, TV and relativistic losses), with "
+                     "PSNR/SSIM self-validation and snapshots"}[mode]
     p = argparse.ArgumentParser(
         prog=f"python -m pesr_torch.{mode}", description=desc,
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
@@ -130,12 +154,16 @@ def build_parser(mode: str = "test") -> argparse.ArgumentParser:
         g.add_argument("--infer_batch", type=int, default=d.infer_batch)
     else:
         g = p.add_argument_group("training")
-        g.add_argument("--phase", default=d.phase, choices=["pretrain"],
-                       help="L1 pretraining (the GAN phase is not ported "
-                            "yet)")
+        g.add_argument("--phase", default=d.phase,
+                       choices=["pretrain", "train"],
+                       help="'pretrain' (L1) or 'train' (the GAN fine-tune)")
         g.add_argument("--pretrained_model", default=d.pretrained_model,
                        help="initial generator: a pesr_torch checkpoint "
                             "directory (EMA preferred)")
+        g.add_argument("--pretrained_d", default=d.pretrained_d,
+                       help="initial discriminator of the GAN phase: an "
+                            "SRGAN-order .pth or a pesr_torch checkpoint "
+                            "directory")
         g.add_argument("--learning_rate", type=float,
                        default=d.learning_rate)
         g.add_argument("--lr_step", type=int, default=d.lr_step,
@@ -153,6 +181,25 @@ def build_parser(mode: str = "test") -> argparse.ArgumentParser:
         g.add_argument("--grad_accum", type=int, default=d.grad_accum,
                        help="microbatches per optimizer step (batch_size "
                             "must divide)")
+        g = p.add_argument_group("losses (phase train)")
+        g.add_argument("--gan_type", default=d.gan_type,
+                       choices=["RSGAN", "RaSGAN", "RaLSGAN", "LSGAN", "GAN"])
+        _add_bool_flag(g, "GP", d.use_gp, "gradient penalty on D")
+        _add_bool_flag(g, "spectral_norm", d.spectral_norm,
+                       "spectral norm on D's convs")
+        _add_bool_flag(g, "focal_loss", d.focal_loss,
+                       "focal re-weighting of the GAN loss")
+        g.add_argument("--fl_gamma", type=float, default=d.fl_gamma)
+        g.add_argument("--alpha_vgg", type=float, default=d.alpha_vgg)
+        g.add_argument("--alpha_gan", type=float, default=d.alpha_gan)
+        g.add_argument("--alpha_tv", type=float, default=d.alpha_tv)
+        g.add_argument("--alpha_l1", type=float, default=d.alpha_l1)
+        g.add_argument("--vgg_layer", default=d.vgg_layer,
+                       help="VGG-19 layer of the perceptual loss, e.g. 54 "
+                            "= conv5_4 pre-activation")
+        g.add_argument("--vgg_weights", default=d.vgg_weights,
+                       help="torchvision-layout VGG-19 .pth (random "
+                            "weights without it)")
         g = p.add_argument_group("checkpointing")
         g.add_argument("--check_point", default=d.check_point)
         g.add_argument("--snapshot_every", type=int, default=d.snapshot_every)
@@ -162,12 +209,9 @@ def build_parser(mode: str = "test") -> argparse.ArgumentParser:
                             "'best' is never pruned)")
         g.add_argument("--log_every", type=int, default=d.log_every)
         g.add_argument("--eval_every", type=int, default=d.eval_every)
-        g.add_argument("--resume", dest="resume", action="store_true",
-                       default=d.resume,
-                       help="resume generator/optimizer state from the "
-                            "newest snapshot under --check_point")
-        g.add_argument("--no_resume", dest="resume", action="store_false",
-                       help=argparse.SUPPRESS)
+        _add_bool_flag(g, "resume", d.resume,
+                       "resume the networks' and optimizers' state from "
+                       "the newest snapshot under --check_point")
     p.add_argument("--device", default=d.device,
                    help="cuda (default; raises without CUDA) or cpu")
     return p
@@ -175,7 +219,10 @@ def build_parser(mode: str = "test") -> argparse.ArgumentParser:
 
 def opts_from_args(argv: Optional[Sequence[str]] = None,
                    mode: str = "test") -> Opts:
-    opts = Opts(**vars(build_parser(mode).parse_args(argv)))
+    ns = vars(build_parser(mode).parse_args(argv))
+    if "GP" in ns:
+        ns["use_gp"] = ns.pop("GP")
+    opts = Opts(**ns)
     upsample_stages(opts.scale)  # fail fast on e.g. 5
     if opts.grad_accum < 1:
         raise SystemExit(f"--grad_accum must be >= 1, got {opts.grad_accum}")

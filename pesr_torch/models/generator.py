@@ -95,18 +95,20 @@ class Generator(nn.Module):
 
 @torch.no_grad()
 def init_weights(module: nn.Module, seed: int) -> None:
-    """Random init from ``seed``: every conv kernel truncated-normal at
-    +-2 sigma with variance 1/fan_in (flax's default ``lecun_normal``,
-    the JAX generator's init), biases zero.  Drawn on the CPU with one
-    ``torch.Generator``, in module order, so the same seed gives the same
-    weights on every device."""
+    """Random init from ``seed``: every conv or dense kernel (a module's
+    ``weight`` of 2 or more dims) truncated-normal at +-2 sigma with
+    variance 1/fan_in (flax's default ``lecun_normal``, the JAX modules'
+    init), its bias zero; norm scales keep their ones.  Drawn on the CPU
+    with one ``torch.Generator``, in module order, so the same seed gives
+    the same weights on every device."""
     g = torch.Generator().manual_seed(seed)
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+        weight = getattr(m, "weight", None)
+        if isinstance(weight, nn.Parameter) and weight.dim() >= 2:
+            fan_in = weight[0].numel()
             # 0.8796... = std of a unit normal truncated at +-2
             std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            w = torch.empty(m.weight.shape, dtype=torch.float32)
+            w = torch.empty(weight.shape, dtype=torch.float32)
             nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
-            m.weight.copy_(w)
+            weight.copy_(w)
             m.bias.zero_()

@@ -8,9 +8,13 @@ A snapshot is a directory, ``<check_point>/step_<K>/`` or
   convention (the shared weight format: ``pesr_tpu.convert`` reads it,
   ``python -m pesr_torch.test --model_path`` loads it);
 * ``ema.pth`` -- the EMA copy's state_dict, when ``--ema_decay > 0``;
-* ``train_state.pt`` -- the optimizer state, the step, the best
-  validation PSNR so far, and the seed of the data stream and the state
-  of the augmentation generator.
+* ``discriminator.pth`` -- in the GAN phase, the discriminator's
+  state_dict in the SRGAN registration order (``pesr_tpu.convert.
+  load_discriminator_weights`` reads it; ``--pretrained_d`` takes it);
+* ``train_state.pt`` -- the optimizer state (and the discriminator's),
+  the step, the best validation PSNR so far, the seed of the data stream,
+  the state of the augmentation generator and, in the GAN phase, of the
+  gradient penalty's generator.
 
 A snapshot is written into a temporary directory and renamed into
 place, so an interrupted save leaves the previous one intact.
@@ -25,10 +29,12 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from pesr_torch.convert import load_discriminator_pth
 from pesr_torch.training.state import TrainState
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 GENERATOR, EMA, TRAIN_STATE = "generator.pth", "ema.pth", "train_state.pt"
+DISCRIMINATOR = "discriminator.pth"
 
 
 def _to_abs(path: str) -> str:
@@ -56,9 +62,14 @@ def _save(path: str, state: TrainState, best_psnr: Optional[float],
     torch.save(state.generator.state_dict(), os.path.join(tmp, GENERATOR))
     if state.ema is not None:
         torch.save(state.ema.state_dict(), os.path.join(tmp, EMA))
-    torch.save({"step": state.step, "best_psnr": best_psnr,
-                "optimizer": state.optimizer.state_dict(), **(extra or {})},
-               os.path.join(tmp, TRAIN_STATE))
+    ts = {"step": state.step, "best_psnr": best_psnr,
+          "optimizer": state.optimizer.state_dict(), **(extra or {})}
+    if state.discriminator is not None:
+        torch.save(state.discriminator.state_dict(),
+                   os.path.join(tmp, DISCRIMINATOR))
+        ts["d_optimizer"] = state.d_optimizer.state_dict()
+        ts["gp_rng"] = state.gp_rng.get_state()
+    torch.save(ts, os.path.join(tmp, TRAIN_STATE))
     shutil.rmtree(path, ignore_errors=True)
     os.replace(tmp, path)
     return path
@@ -116,9 +127,11 @@ def _load(path: str) -> Any:
 def restore_train_state(path: str, state: TrainState
                         ) -> Tuple[int, Optional[float], Dict[str, Any]]:
     """Load a snapshot into ``state`` in place (generator, optimizer,
-    step; the EMA copy when both hold one).  Returns ``(step, best_psnr,
-    train_state)``, the last the whole ``train_state.pt`` dict; its
-    ``"has_ema"`` says whether the EMA copy was restored."""
+    step; the EMA copy when both hold one; the discriminator, its
+    optimizer and the penalty's generator when both are of the GAN
+    phase).  Returns ``(step, best_psnr, train_state)``, the last the
+    whole ``train_state.pt`` dict; its ``"has_ema"`` and ``"has_d"`` say
+    whether the EMA copy and the discriminator were restored."""
     path = resolve(path)
     ts = _load(os.path.join(path, TRAIN_STATE))
     state.generator.load_state_dict(_load(os.path.join(path, GENERATOR)))
@@ -128,6 +141,13 @@ def restore_train_state(path: str, state: TrainState
     ts["has_ema"] = state.ema is not None and os.path.isfile(ema_path)
     if ts["has_ema"]:
         state.ema.load_state_dict(_load(ema_path))
+    d_path = os.path.join(path, DISCRIMINATOR)
+    ts["has_d"] = (state.discriminator is not None
+                   and os.path.isfile(d_path))
+    if ts["has_d"]:
+        state.discriminator.load_state_dict(_load(d_path))
+        state.d_optimizer.load_state_dict(ts["d_optimizer"])
+        state.gp_rng.set_state(ts["gp_rng"])
     return state.step, ts.get("best_psnr"), ts
 
 
@@ -143,6 +163,24 @@ def restore_generator_params(path: str, prefer_ema: bool = True
     ts_path = os.path.join(path, TRAIN_STATE)
     step = int(_load(ts_path)["step"]) if os.path.isfile(ts_path) else 0
     return sd, step
+
+
+def restore_discriminator_params(path: str, hr_size: int
+                                 ) -> Dict[str, torch.Tensor]:
+    """``--pretrained_d``: the discriminator's state_dict from a port
+    snapshot (``path`` as :func:`resolve` takes it; its
+    ``discriminator.pth``) or from an SRGAN-order ``.pth``."""
+    if os.path.isdir(path):
+        try:
+            snap = resolve(path)
+        except FileNotFoundError:
+            snap = None   # not a port snapshot: the loader says what to pass
+        if snap is not None:
+            path = os.path.join(snap, DISCRIMINATOR)
+            if not os.path.isfile(path):
+                raise FileNotFoundError(f"{snap} holds no {DISCRIMINATOR} "
+                                        f"(a pretrain snapshot?)")
+    return load_discriminator_pth(path, hr_size)
 
 
 def validate_params_compat(expected: Dict[str, torch.Tensor],

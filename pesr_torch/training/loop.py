@@ -1,9 +1,11 @@
-"""Training loop of the L1 pretrain phase (counterpart of
-``pesr_tpu/training/loop.py``, pretrain phase only).
+"""Training loop of both phases (counterpart of
+``pesr_tpu/training/loop.py``): ``pretrain`` (L1) and ``train`` (the GAN
+fine-tune: discriminator, VGG perceptual, TV and relativistic losses,
+usually from ``--pretrained_model``).
 
 Per epoch: ``steps_per_epoch`` steps (uint8 batch to the device, LR
-synthesis + dihedral augmentation there, one pretrain step through the
-kernels), then PSNR/SSIM self-validation on ``num_valids`` images of the
+synthesis + dihedral augmentation there, one step of the phase through
+the kernels), then PSNR/SSIM self-validation on ``num_valids`` images of the
 validation set through the tiled engine (``BatchTiledUpscaler``, tile
 and overlap as the JAX package's training tiler) on a ``KernelApply``
 built from the current or EMA weights, JSONL/stdout scalars, and
@@ -24,9 +26,10 @@ from pesr_torch.metrics import calc_psnr, calc_ssim
 from pesr_torch.models.kernel_apply import KernelApply
 from pesr_torch.ops.tiling import BatchTiledUpscaler
 from pesr_torch.training import checkpoint as ckpt
-from pesr_torch.training.state import (COMPUTE_DTYPES,
-                                       create_generator_state, make_ema)
-from pesr_torch.training.steps import make_pretrain_step
+from pesr_torch.training.state import (COMPUTE_DTYPES, add_discriminator,
+                                       create_generator_state, init_vgg,
+                                       make_ema)
+from pesr_torch.training.steps import make_gan_step, make_pretrain_step
 from pesr_torch.utils.device import host_to_device, resolve_device
 from pesr_torch.utils.logging import AverageMeter, MetricLogger
 
@@ -62,11 +65,11 @@ def evaluate(opts, apply_fn, samples=None) -> Dict[str, float]:
 
 
 def run_training(opts) -> Dict[str, float]:
-    """Run the pretrain phase end to end; returns the summary (steps,
+    """Run the configured phase end to end; returns the summary (steps,
     wall time, last validation, forward counts of training and eval)."""
-    if opts.phase != "pretrain":
-        raise ValueError(f"phase {opts.phase!r} is not ported; only "
-                         f"'pretrain'")
+    if opts.phase not in ("pretrain", "train"):
+        raise ValueError(f"phase {opts.phase!r} is not ported (the port has "
+                         f"'pretrain' and 'train'; 'qat' is still missing)")
     device = resolve_device(opts.device)
     opts = dataclasses.replace(opts, device=str(device))
     if opts.steps_per_epoch <= 0:
@@ -89,7 +92,10 @@ def run_training(opts) -> Dict[str, float]:
               f"{opts.pretrained_model}")
     if opts.ema_decay > 0.0:
         state.ema = make_ema(state.generator)
-    step_fn = make_pretrain_step(opts)
+    if opts.phase == "train":
+        step_fn = _gan_setup(opts, state, device)
+    else:
+        step_fn = make_pretrain_step(opts)
     aug = torch.Generator().manual_seed(opts.seed)
 
     best_psnr = None
@@ -101,6 +107,9 @@ def run_training(opts) -> Dict[str, float]:
             state.ema = make_ema(state.generator)
             print("[ema] checkpoint has no EMA copy: re-seeding the "
                   "average from the restored parameters")
+        if state.discriminator is not None and not ts["has_d"]:
+            print("[gan] checkpoint has no discriminator: D keeps its "
+                  "initialisation")
         print(f"resumed from {opts.check_point} at step {state.step}"
               + (f" (best_psnr {best_psnr:.2f})" if best_psnr else ""))
     if state.ema is not None:
@@ -138,6 +147,34 @@ def run_training(opts) -> Dict[str, float]:
     summary["train_forwards"] = state.apply.forwards
     summary["eval_forwards"] = box["eval_forwards"]
     return summary
+
+
+def _gan_setup(opts, state, device):
+    """The GAN phase's additions to ``state`` (discriminator from
+    ``--pretrained_d`` or the seed, the VGG trunk when ``alpha_vgg > 0``)
+    and its step."""
+    add_discriminator(state, opts, device)
+    if opts.pretrained_d:
+        sd = ckpt.restore_discriminator_params(opts.pretrained_d,
+                                               opts.hr_patch_size)
+        ckpt.validate_params_compat(state.discriminator.state_dict(), sd,
+                                    "discriminator")
+        state.discriminator.load_state_dict(sd)
+        print(f"loaded pretrained discriminator from {opts.pretrained_d}")
+    if opts.alpha_vgg > 0.0:
+        state.vgg = init_vgg(opts, device)
+        if not opts.vgg_weights:
+            print("WARNING: --alpha_vgg > 0 but no --vgg_weights: the "
+                  "perceptual anchor uses RANDOM VGG features, whose "
+                  "magnitudes are ~100x smaller than trained VGG54's; the "
+                  "adversarial term will dominate and PSNR can collapse. "
+                  "Provide torchvision-layout VGG-19 weights, or add "
+                  "--alpha_l1 1.0 as a pixel anchor for experiments.")
+    print(f"GAN phase: {opts.gan_type}, alpha vgg {opts.alpha_vgg} (layer "
+          f"{opts.vgg_layer}) gan {opts.alpha_gan} tv {opts.alpha_tv} l1 "
+          f"{opts.alpha_l1}, GP {opts.use_gp}, spectral norm "
+          f"{opts.spectral_norm}, focal {opts.focal_loss}")
+    return make_gan_step(opts)
 
 
 def _train_epochs(opts, state, step_fn, aug, train_iter, logger, summary,

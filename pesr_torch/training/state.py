@@ -1,13 +1,16 @@
-"""Train state of the L1 pretrain phase: generator, Adam, the staircase LR
-and the EMA copy (counterpart of ``pesr_tpu/training/state.py``).
+"""Train state of both phases: generator, Adam, the staircase LR and the
+EMA copy; in the GAN phase also the discriminator with its own Adam, the
+frozen VGG trunk and the gradient penalty's random generator
+(counterpart of ``pesr_tpu/training/state.py``).
 
 The JAX package trains with ``optax.adam(b1=0.9, b2=0.999)`` (eps 1e-8,
 added outside the square root) on an ``exponential_decay`` staircase:
 the LR halves every ``lr_step`` epochs of ``steps_per_epoch`` steps and
 step 0 uses the base LR.  ``torch.optim.Adam`` with the same betas and
 eps computes the same update; its LR is set from :func:`make_lr_schedule`
-before every step (``pretrain_step``), so the schedule needs no state of
-its own in a checkpoint.
+before every step (by the steps), so the schedule needs no state of its
+own in a checkpoint.  The discriminator's Adam is the same optimizer on
+the same schedule (JAX's ``_make_tx`` for both networks).
 """
 
 from __future__ import annotations
@@ -18,8 +21,11 @@ from typing import Callable, Optional
 
 import torch
 
+from pesr_torch.convert import load_vgg19_pth
+from pesr_torch.models.discriminator import Discriminator
 from pesr_torch.models.generator import Generator
 from pesr_torch.models.kernel_apply import KernelTrainApply
+from pesr_torch.models.vgg import VGG19Features
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -37,16 +43,23 @@ def make_lr_schedule(opts) -> Callable[[int], float]:
 
 @dataclasses.dataclass
 class TrainState:
-    """What a pretrain step updates in place.  ``apply`` is the forward
-    the step differentiates (:class:`KernelTrainApply` on ``generator``);
+    """What a train step updates in place.  ``apply`` is the forward the
+    step differentiates (:class:`KernelTrainApply` on ``generator``);
     ``ema`` is a copy of the generator holding the parameter average
-    when ``--ema_decay > 0``."""
+    when ``--ema_decay > 0``.  The GAN phase also sets
+    ``discriminator`` and ``d_optimizer`` (:func:`add_discriminator`),
+    ``vgg`` when ``alpha_vgg > 0`` (:func:`init_vgg`), and ``gp_rng``, the
+    generator the step draws the gradient penalty's ``eps`` from."""
     generator: Generator
     optimizer: torch.optim.Optimizer
     lr_at: Callable[[int], float]
     apply: Callable[[torch.Tensor], torch.Tensor]
     step: int = 0
     ema: Optional[Generator] = None
+    discriminator: Optional[Discriminator] = None
+    d_optimizer: Optional[torch.optim.Optimizer] = None
+    vgg: Optional[VGG19Features] = None
+    gp_rng: Optional[torch.Generator] = None
 
 
 def make_ema(generator: Generator) -> Generator:
@@ -66,8 +79,40 @@ def create_generator_state(opts, device: torch.device,
     if generator is None:
         generator = Generator(opts.scale, opts.num_blocks, opts.num_channels,
                               opts.res_scale, device=device, seed=opts.seed)
-    opt = torch.optim.Adam(generator.parameters(), lr=opts.learning_rate,
-                           betas=(0.9, 0.999), eps=1e-8)
-    return TrainState(generator, opt, make_lr_schedule(opts),
+    return TrainState(generator, _adam(generator, opts),
+                      make_lr_schedule(opts),
                       KernelTrainApply(generator,
                                        COMPUTE_DTYPES[opts.compute_dtype]))
+
+
+def _adam(module: torch.nn.Module, opts) -> torch.optim.Optimizer:
+    return torch.optim.Adam(module.parameters(), lr=opts.learning_rate,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
+def add_discriminator(state: TrainState, opts, device: torch.device,
+                      discriminator: Optional[Discriminator] = None) -> None:
+    """Give ``state`` the GAN phase's discriminator (random init from
+    ``opts.seed + 1``, or the given one; SRGAN widths, dense 1024, sized
+    for ``opts.hr_patch_size``, computing in ``opts.compute_dtype``) with
+    its Adam, and the penalty's generator on ``device`` (seeded with
+    ``opts.seed + 3``)."""
+    if discriminator is None:
+        discriminator = Discriminator(
+            opts.hr_patch_size, spectral_norm=opts.spectral_norm,
+            dtype=COMPUTE_DTYPES[opts.compute_dtype], device=device,
+            seed=opts.seed + 1)
+    state.discriminator = discriminator
+    state.d_optimizer = _adam(discriminator, opts)
+    state.gp_rng = torch.Generator(device=device).manual_seed(opts.seed + 3)
+
+
+def init_vgg(opts, device: torch.device) -> VGG19Features:
+    """The frozen VGG-19 trunk up to ``opts.vgg_layer`` in
+    ``opts.compute_dtype``: ``--vgg_weights`` (a torchvision-layout
+    ``.pth``) when given, else random from ``opts.seed + 2``."""
+    vgg = VGG19Features(opts.vgg_layer, COMPUTE_DTYPES[opts.compute_dtype],
+                        device=device, seed=opts.seed + 2)
+    if opts.vgg_weights:
+        vgg.load_state_dict(load_vgg19_pth(opts.vgg_weights, opts.vgg_layer))
+    return vgg

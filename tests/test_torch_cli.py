@@ -67,6 +67,20 @@ def _imports(path):
             yield node.module
 
 
+def _torch_spectral_norm(path):
+    """Uses of torch's spectral norm (``torch.nn.utils.spectral_norm``,
+    ``...parametrizations.spectral_norm``, or either imported by name)."""
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Attribute) and node.attr == "spectral_norm"
+                and ast.unparse(node.value).endswith(("utils",
+                                                      "parametrizations"))):
+            yield ast.unparse(node)
+        elif isinstance(node, ast.ImportFrom) and any(
+                a.name == "spectral_norm" for a in node.names):
+            yield f"from {node.module} import spectral_norm"
+
+
 def test_port_imports_nothing_of_jax_or_pesr_tpu():
     files = [os.path.join(_REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(_REPO, "pesr_torch")):
@@ -76,11 +90,18 @@ def test_port_imports_nothing_of_jax_or_pesr_tpu():
     assert {"pesr_torch/train.py", "pesr_torch/losses.py",
             "pesr_torch/training/loop.py", "pesr_torch/training/steps.py",
             "pesr_torch/training/state.py",
-            "pesr_torch/training/checkpoint.py"} <= scanned
+            "pesr_torch/training/checkpoint.py",
+            "pesr_torch/models/discriminator.py",
+            "pesr_torch/models/vgg.py", "pesr_torch/convert.py"} <= scanned
     bad = [(os.path.relpath(f, _REPO), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                   "pesr_tpu")]
     assert not bad, bad
+    # the discriminator's spectral norm is the JAX package's stateless
+    # one, not torch's (whose persistent u is another algorithm)
+    sn = [(os.path.relpath(f, _REPO), u) for f in files
+          for u in _torch_spectral_norm(f)]
+    assert not sn, sn
 
 
 def test_png_writer_round_trips_through_pillow(tmp_path):

@@ -442,15 +442,26 @@ def test_cli_without_device_raises_when_cuda_is_missing(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--phase", "train"], ["--phase", "qat"], ["--gan_type", "RaSGAN"],
-    ["--alpha_vgg", "1"], ["--GP"], ["--fold_train"], ["--use_pallas"],
+    ["--phase", "qat"], ["--fold_train"], ["--use_pallas"],
     ["--remat"], ["--unroll_body"], ["--mesh_shape", "4"], ["--distributed"],
     ["--profile_dir", "p"], ["--eval_pi"], ["--trim_host_heap"],
-    ["--vgg_weights", "v.pth"], ["--pretrained_d", "d"],
     ["--compute_dtype", "float32"]])
 def test_train_cli_rejects_flags_the_port_lacks(flag):
     with pytest.raises(SystemExit):
         opts_from_args(_TINY_CLI + flag, mode="train")
+
+
+@pytest.mark.parametrize("flag, field", [
+    (["--phase", "train"], "phase"), (["--gan_type", "RaSGAN"], "gan_type"),
+    (["--alpha_vgg", "1"], "alpha_vgg"), (["--GP"], "use_gp"),
+    (["--vgg_weights", "v.pth"], "vgg_weights"),
+    (["--pretrained_d", "d"], "pretrained_d")])
+def test_train_cli_parses_the_gan_flags_as_jax_does(flag, field):
+    """The GAN phase's flags, once rejected, now parse into the field the
+    JAX package's parser sets, with its value."""
+    ours = opts_from_args(_TINY_CLI + flag, mode="train")
+    want = getattr(jax_config.opts_from_args(flag, mode="train"), field)
+    assert getattr(ours, field) == want != getattr(Opts(), field)
 
 
 def test_train_cli_checks_grad_accum():

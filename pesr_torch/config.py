@@ -1,16 +1,22 @@
 """Options of the port: the test-mode and train-mode subsets of
 ``pesr_tpu/config.py``.
 
-Train mode has both phases of the JAX package, ``--phase pretrain`` and
-``--phase train`` (the GAN fine-tune, with JAX's loss flags, names and
-defaults, the ``--no_`` twins of its on/off flags included).  Flags the
-port does not implement yet are not in the parsers, so argparse rejects
-them instead of ignoring them: in test mode ``--quant``, ``--fold``,
-``--self_ensemble``, ``--mesh_shape``, ``--export_artifact``, ...; in
-train mode ``--phase qat``, ``--fold_train``, ``--mesh_shape``,
-``--distributed``, ``--profile_dir``, ``--eval_pi``, ``--trim_host_heap``,
-...  The port always runs its kernels (no ``--use_pallas``) and its
-recompute backward keeps only each block's input (no ``--remat``).
+Test mode has the single-device flow of the JAX ``test.py``: the folded
+upsampler (``--fold``, on by default; tiled modes only), the x8
+self-ensemble (``--self_ensemble``) and network interpolation
+(``--interp_model``, ``--interp_alpha``).  Train mode has both phases of
+the JAX package, ``--phase pretrain`` and ``--phase train`` (the GAN
+fine-tune, with JAX's loss flags, names and defaults), and
+``--fold_train``, which the CLI turns on unless ``--no_fold_train`` is
+given, as JAX's resolver does (the dataclass default stays off).  On/off
+flags have their ``--no_`` twins.  Flags the port does not implement yet
+are not in the parsers, so argparse rejects them instead of ignoring
+them: in test mode ``--quant``, ``--mesh_shape``, ``--export_artifact``,
+...; in train mode ``--phase qat``, ``--mesh_shape``, ``--distributed``,
+``--profile_dir``, ``--eval_pi``, ``--trim_host_heap``, ...  The port
+always runs its kernels (no ``--use_pallas``) and its recompute backward
+keeps only each block's input (no ``--remat``, no ``--unroll_body``), so
+JAX's resolver never steps aside for those.
 """
 
 from __future__ import annotations
@@ -62,6 +68,8 @@ class Opts:
     alpha_l1: float = 0.0
     vgg_layer: str = "54"         # conv5_4 pre-activation ("VGG54")
     vgg_weights: str = ""         # torchvision-layout VGG-19 .pth
+    fold_train: bool = False      # train through the folded upsampler
+                                  # (the train CLI turns it on)
     # checkpoints / logging
     check_point: str = "check_point/pesr"
     snapshot_every: int = 10      # epochs between snapshots (0 = last only)
@@ -75,6 +83,10 @@ class Opts:
     tile_size: object = 96        # int, 0 = whole image, or "auto"
     tile_overlap: int = 8         # LR halo on each side
     infer_batch: int = 8          # images per device batch
+    fold: bool = True             # folded upsampler in tiled inference
+    self_ensemble: bool = False   # x8 geometric self-ensemble
+    interp_model: str = ""        # network interpolation: second weights
+    interp_alpha: float = 0.5     # (1 - a) * model_path + a * interp_model
     device: str = "cuda"
 
     @property
@@ -152,6 +164,19 @@ def build_parser(mode: str = "test") -> argparse.ArgumentParser:
                        help='LR tile side, 0 = whole image, or "auto"')
         g.add_argument("--tile_overlap", type=int, default=d.tile_overlap)
         g.add_argument("--infer_batch", type=int, default=d.infer_batch)
+        _add_bool_flag(g, "fold", d.fold,
+                       "fold the linear upsampler + out chain into one conv "
+                       "(tiled modes; exact on the interior, the engines "
+                       "pad and crop its border band)")
+        _add_bool_flag(g, "self_ensemble", d.self_ensemble,
+                       "x8 geometric test-time augmentation")
+        g.add_argument("--interp_model", default=d.interp_model,
+                       help="network interpolation: blend this checkpoint's "
+                            "weights into --model_path's as (1-a)*base + "
+                            "a*this before inference")
+        g.add_argument("--interp_alpha", type=float, default=d.interp_alpha,
+                       help="blend factor a in [0, 1]: 0 = --model_path, "
+                            "1 = --interp_model")
     else:
         g = p.add_argument_group("training")
         g.add_argument("--phase", default=d.phase,
@@ -181,6 +206,16 @@ def build_parser(mode: str = "test") -> argparse.ArgumentParser:
         g.add_argument("--grad_accum", type=int, default=d.grad_accum,
                        help="microbatches per optimizer step (batch_size "
                             "must divide)")
+        # None = not given: the CLI default is ON (opts_from_args), as in
+        # the JAX package; the Opts default stays off for library callers.
+        g.add_argument("--fold_train", dest="fold_train", action="store_true",
+                       default=None,
+                       help="train through the differentiable folded "
+                            "upsampler (default on; patch borders see the "
+                            "fold's one zero padding instead of one per "
+                            "stage, the interior is the same)")
+        g.add_argument("--no_fold_train", dest="fold_train",
+                       action="store_false", help=argparse.SUPPRESS)
         g = p.add_argument_group("losses (phase train)")
         g.add_argument("--gan_type", default=d.gan_type,
                        choices=["RSGAN", "RaSGAN", "RaLSGAN", "LSGAN", "GAN"])
@@ -222,6 +257,8 @@ def opts_from_args(argv: Optional[Sequence[str]] = None,
     ns = vars(build_parser(mode).parse_args(argv))
     if "GP" in ns:
         ns["use_gp"] = ns.pop("GP")
+    if ns.get("fold_train", False) is None:
+        ns["fold_train"] = True
     opts = Opts(**ns)
     upsample_stages(opts.scale)  # fail fast on e.g. 5
     if opts.grad_accum < 1:

@@ -1,26 +1,36 @@
 """Generator forward with the body and the x2 stages on the hand-written
-kernels (counterpart of ``pesr_tpu/models/pallas_apply.py``).
+kernels (counterpart of ``pesr_tpu/models/pallas_apply.py``, and of the
+folded applies of ``pesr_tpu/models/fold.py``).
 
 Both applies take the weights of the plain :class:`Generator` (the same
 state_dict) and keep its I/O contract: NHWC [-1, 1] in, NHWC float32
-out.  The residual body is a loop of ``fused_resblock`` over the blocks
-and each x2 upsampler stage is one ``fused_upsampler_stage``; the head,
-tail and output convs stay ``F.conv2d``, as the JAX package leaves them
-to XLA, and so does an x3 stage (conv + pixel shuffle).  Compute is in
-``dtype`` (bf16 by default) with f32 accumulation in the kernels.
+out.  The trunk (head conv, the residual body as a loop of
+``fused_resblock`` over the blocks, tail conv + skip) is shared; after
+it, either the upsampler chain, each x2 stage one
+``fused_upsampler_stage`` (an x3 stage conv + pixel shuffle) and the out
+conv, or, with ``fold=True``, the folded upsampler: one conv with the
+composite kernel of ``models/fold.py`` and one pixel shuffle.  The head,
+tail, out and folded convs stay ``F.conv2d``, as the JAX package leaves
+them to XLA.  Compute is in ``dtype`` (bf16 by default) with f32
+accumulation in the kernels.
 
 * :class:`KernelApply` (inference) packs the weights once, at
   construction, into the layouts the kernels take; no call repacks them.
+  Folded, it derives the composite once by impulse probing and carries
+  ``min_halo`` (the fold's border band, which the engines pad and crop)
+  and ``uint8_variant`` (quantised before the pixel shuffle).
 * :class:`KernelTrainApply` (training) reads the generator's live
   parameters on every call, casts them to ``dtype`` (gradients reach the
   f32 parameters through the cast, as JAX's ``w.astype(dtype)``) and
   runs the differentiable kernels, whose backward is recomputed through
-  the plain versions.
+  the plain versions.  Folded (``--fold_train``), it composes the fold
+  analytically from the live upsampler and out weights on every call,
+  so the optimizer updates them through it; snapshots keep them.
 
 On a CPU device the kernel wrappers run their plain versions.  Both
 count their calls in ``forwards``, so a run can check that each forward
 launched the body kernel ``num_blocks`` times and the upsampler kernel
-once per x2 stage.
+once per x2 stage (never, folded).
 """
 
 from __future__ import annotations
@@ -29,6 +39,9 @@ from typing import Callable, Sequence, Tuple
 
 import torch
 
+from pesr_torch.data.augment import denormalize_to_uint8
+from pesr_torch.models.fold import (analytic_fold_upsampler, fold_upsampler,
+                                    folded_conv)
 from pesr_torch.models.generator import Generator
 from pesr_torch.ops.kernels import (fused_resblock, fused_resblock_train,
                                     fused_upsampler_stage,
@@ -36,7 +49,7 @@ from pesr_torch.ops.kernels import (fused_resblock, fused_resblock_train,
                                     pack_resblock, pack_upsampler_stage)
 from pesr_torch.ops.kernels.common import conv3x3_nhwc
 from pesr_torch.ops.pixel_shuffle import pixel_shuffle
-from pesr_torch.scales import upsample_stages
+from pesr_torch.scales import fold_min_halo, upsample_stages
 
 Conv = Tuple[torch.Tensor, torch.Tensor]
 
@@ -51,17 +64,21 @@ def generator_convs(g: Generator):
     return g.head[0], blocks, g.body[-1], stages, g.tail[1]
 
 
-def _forward(x: torch.Tensor, head: Conv, blocks: Sequence[tuple],
-             block_fn: Callable, tail: Conv, stages: Sequence[tuple],
-             stage_fn: Callable, out: Conv) -> torch.Tensor:
-    """The generator chain; ``block_fn(y, *blk)`` runs a residual block,
-    ``stage_fn(y, *p)`` an x2 stage, on the weights as each apply holds
-    them."""
+def _trunk(x: torch.Tensor, head: Conv, blocks: Sequence[tuple],
+           block_fn: Callable, tail: Conv) -> torch.Tensor:
+    """Head conv, the residual blocks (``block_fn(y, *blk)`` runs one on
+    the weights as each apply holds them), tail conv + global skip."""
     head_y = conv3x3_nhwc(x, *head)
     y = head_y
     for blk in blocks:
         y = block_fn(y, *blk)
-    y = conv3x3_nhwc(y, *tail) + head_y
+    return conv3x3_nhwc(y, *tail) + head_y
+
+
+def _upsample(y: torch.Tensor, stages: Sequence[tuple], stage_fn: Callable,
+              out: Conv) -> torch.Tensor:
+    """The upsampler chain and the out conv; ``stage_fn(y, *p)`` runs an
+    x2 stage."""
     for f, p in stages:
         if f == 2:
             y = stage_fn(y, *p)
@@ -72,10 +89,12 @@ def _forward(x: torch.Tensor, head: Conv, blocks: Sequence[tuple],
 
 class KernelApply:
     """``apply(x)`` interchangeable with ``Generator.forward``, on the
-    weights packed at construction (inference: no autograd)."""
+    weights packed at construction (inference: no autograd).  ``fold``:
+    the folded upsampler (``test.py --fold``) in place of the chain."""
 
     def __init__(self, generator: Generator,
-                 dtype: torch.dtype = torch.bfloat16) -> None:
+                 dtype: torch.dtype = torch.bfloat16,
+                 fold: bool = False) -> None:
         self.scale, self.res_scale = generator.scale, generator.res_scale
         self.num_blocks, self.dtype = generator.num_blocks, dtype
         self.forwards = 0
@@ -84,9 +103,18 @@ class KernelApply:
             return m.weight.detach().to(dtype), m.bias.detach().to(dtype)
 
         head, blocks, tail, stages, out = generator_convs(generator)
-        self.head, self.tail, self.out = conv(head), conv(tail), conv(out)
+        self.head, self.tail = conv(head), conv(tail)
         self.blocks = [pack_resblock(c1.weight, c1.bias, c2.weight, c2.bias,
                                      dtype) for c1, c2 in blocks]
+        self.min_halo, self.uint8_variant = 0, None
+        if fold:
+            kernel, bias, self.pads = fold_upsampler(generator.state_dict(),
+                                                     self.scale)
+            self.fold = (kernel.to(dtype), bias.to(dtype))
+            self.min_halo = fold_min_halo(self.scale)
+            self.uint8_variant = self._uint8
+            return
+        self.fold, self.out = None, conv(out)
         self.stages = []
         for f, m in stages:
             w, b = conv(m)
@@ -96,23 +124,41 @@ class KernelApply:
             else:
                 self.stages.append((f, (w, b)))
 
+    def _trunk(self, x: torch.Tensor) -> torch.Tensor:
+        self.forwards += 1
+        rs = self.res_scale
+        return _trunk(x.to(self.dtype), self.head, self.blocks,
+                      lambda y, *p: fused_resblock(y, *p, res_scale=rs),
+                      self.tail)
+
     @torch.no_grad()
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        rs = self.res_scale
-        y = _forward(x.to(self.dtype), self.head, self.blocks,
-                     lambda y, *p: fused_resblock(y, *p, res_scale=rs),
-                     self.tail, self.stages, fused_upsampler_stage, self.out)
-        self.forwards += 1
-        return y
+        y = self._trunk(x)
+        if self.fold is None:
+            return _upsample(y, self.stages, fused_upsampler_stage, self.out)
+        return pixel_shuffle(folded_conv(y, *self.fold, self.pads),
+                             self.scale).float()
+
+    @torch.no_grad()
+    def _uint8(self, x: torch.Tensor) -> torch.Tensor:
+        """The folded apply with uint8 output, quantised BEFORE the pixel
+        shuffle: ``denormalize_to_uint8`` is per element, so this equals
+        quantising after bit for bit, and the shuffle's copy of the HR
+        tensor moves 1-byte pixels."""
+        y = folded_conv(self._trunk(x), *self.fold, self.pads)
+        return pixel_shuffle(denormalize_to_uint8(y), self.scale)
 
 
 class KernelTrainApply:
     """Differentiable ``apply(x)`` on the live parameters of
-    ``generator`` (the training counterpart of :class:`KernelApply`)."""
+    ``generator`` (the training counterpart of :class:`KernelApply`);
+    ``fold``: through the analytic fold (``--fold_train``)."""
 
     def __init__(self, generator: Generator,
-                 dtype: torch.dtype = torch.bfloat16) -> None:
-        self.generator, self.dtype = generator, dtype
+                 dtype: torch.dtype = torch.bfloat16,
+                 fold: bool = False) -> None:
+        self.generator, self.dtype, self.fold = generator, dtype, fold
+        self.min_halo = fold_min_halo(generator.scale) if fold else 0
         self.forwards = 0
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -123,10 +169,16 @@ class KernelTrainApply:
 
         head, blocks, tail, stages, out = generator_convs(g)
         rs = g.res_scale
-        y = _forward(x.to(dt), conv(head),
-                     [conv(c1) + conv(c2) for c1, c2 in blocks],
-                     lambda y, *p: fused_resblock_train(y, *p, res_scale=rs),
-                     conv(tail), [(f, conv(m)) for f, m in stages],
-                     fused_upsampler_stage_train, conv(out))
+        y = _trunk(x.to(dt), conv(head),
+                   [conv(c1) + conv(c2) for c1, c2 in blocks],
+                   lambda y, *p: fused_resblock_train(y, *p, res_scale=rs),
+                   conv(tail))
         self.forwards += 1
-        return y
+        if not self.fold:
+            return _upsample(y, [(f, conv(m)) for f, m in stages],
+                             fused_upsampler_stage_train, conv(out))
+        kernel, bias, pads = analytic_fold_upsampler(
+            [(m.weight, m.bias) for _, m in stages], (out.weight, out.bias),
+            g.scale)
+        return pixel_shuffle(folded_conv(y, kernel, bias, pads),
+                             g.scale).float()

@@ -10,12 +10,13 @@ two matmuls (:func:`imresize`, on tensors).
 
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Tuple
 
 import numpy as np
 import torch
+
+from pesr_torch.utils.device import full_f32
 
 
 def _cubic(x: np.ndarray) -> np.ndarray:
@@ -86,22 +87,6 @@ def _kernel_matrix(in_size: int, out_size: int, antialias: bool,
                                                  antialias)).to(device)
 
 
-@contextlib.contextmanager
-def _full_f32(device: torch.device):
-    """f32 matmuls in full f32 on a CUDA device (no TF32) for the block,
-    whatever the process set: the 0.05 dB parity budget of LR synthesis
-    does not survive TF32's 10-bit mantissa."""
-    if device.type != "cuda":
-        yield
-        return
-    before = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = before
-
-
 def imresize(img: torch.Tensor, out_hw: Tuple[int, int],
              antialias: bool = True) -> torch.Tensor:
     """MATLAB-equivalent bicubic resize of NHWC images: float32 in and
@@ -110,7 +95,7 @@ def imresize(img: torch.Tensor, out_hw: Tuple[int, int],
     h, w = img.shape[1:3]
     oh, ow = out_hw
     x = img.float()
-    with _full_f32(x.device):
+    with full_f32(x.device):
         if oh != h:
             x = torch.einsum("oh,bhwc->bowc",
                              _kernel_matrix(h, oh, antialias, x.device), x)

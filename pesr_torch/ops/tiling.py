@@ -1,6 +1,7 @@
 """Tiled whole-image inference with overlap-stitch, on one device
 (counterpart of ``pesr_tpu/ops/tiling.py``: ``BatchTiledUpscaler``,
-``WholeImageUpscaler``, ``required_min_halo``, ``_edge_pad_capped``).
+``WholeImageUpscaler``, ``self_ensemble_upscale``, ``select_uint8_apply``,
+``required_min_halo``, ``_edge_pad_capped``).
 
 The engine:
 
@@ -12,8 +13,14 @@ The engine:
     device),
   * writes back only each tile's core.
 
-Not ported (yet): the multi-device mesh modes, the geometric
-self-ensemble and the uint8-variant applies of folded/int8 paths.
+A folded apply (``models/fold.py``) is exact only ``min_halo`` LR pixels
+away from a zero-padded border, so both engines replicate-pad and crop
+at least that much on every border, and ride its ``uint8_variant`` for
+uint8 output.  The x8 geometric self-ensemble averages the float outputs
+of the eight dihedral transforms and rounds once.
+
+Not ported (yet): the host-stitch ``TiledUpscaler`` and the
+multi-device mesh modes.
 """
 
 from __future__ import annotations
@@ -28,10 +35,54 @@ from pesr_torch.data.augment import denormalize_to_uint8, normalize_uint8
 from pesr_torch.utils.device import resolve_device
 
 
+def self_ensemble_upscale(engine: "WholeImageUpscaler",
+                          lr_u8: np.ndarray) -> np.ndarray:
+    """Geometric x8 self-ensemble of one HWC uint8 image on the host:
+    upscale the eight dihedral transforms (``engine.upscale_float``),
+    invert each on its output, average in float64, round once with
+    ``floor(x + 0.5)`` (as ``denormalize_to_uint8``).  The branches are
+    averaged unquantised: rounding each first would add eight half-LSB
+    errors to the mean."""
+    acc = None
+    for t in range(8):
+        img = lr_u8
+        if t & 1:
+            img = img[::-1]
+        if t & 2:
+            img = img[:, ::-1]
+        if t & 4:
+            img = np.swapaxes(img, 0, 1)
+        sr = engine.upscale_float(np.ascontiguousarray(img)).astype(np.float64)
+        if t & 4:
+            sr = np.swapaxes(sr, 0, 1)
+        if t & 2:
+            sr = sr[:, ::-1]
+        if t & 1:
+            sr = sr[::-1]
+        acc = sr if acc is None else acc + sr
+    return np.clip(np.floor(acc / 8.0 + 0.5), 0, 255).astype(np.uint8)
+
+
+def select_uint8_apply(apply_fn: Callable, float_out: bool = False
+                       ) -> Tuple[Callable, bool]:
+    """``(forward, use_u8)`` for an engine path: the apply's
+    ``uint8_variant`` (quantised before its pixel shuffle, bitwise equal
+    to quantising after) for uint8 output, else the float apply."""
+    u8_fn = getattr(apply_fn, "uint8_variant", None)
+    use_u8 = u8_fn is not None and not float_out
+    return (u8_fn if use_u8 else apply_fn), use_u8
+
+
+def _to_255(sr: torch.Tensor) -> torch.Tensor:
+    """Model-space [-1, 1] -> unquantised float32 on the [0, 255] scale."""
+    return (sr.float() + 1.0) * 127.5
+
+
 def required_min_halo(apply_fn: Callable) -> int:
     """Correctness floor for the border halo of an apply function: its
-    ``min_halo`` attribute, 0 for the plain chain (only folded upsampler
-    paths, not ported yet, are exact only away from padded borders)."""
+    ``min_halo`` attribute (a folded upsampler's border band), 0 for the
+    plain chain.  The engines pad at least this much on EVERY border,
+    outer image borders of a single tile included, and crop it."""
     return int(getattr(apply_fn, "min_halo", 0))
 
 
@@ -61,26 +112,53 @@ def _as_device_batch(imgs_u8, device: torch.device, ndim: int) -> torch.Tensor:
 
 class WholeImageUpscaler:
     """One whole-image forward per image, no tiling (the reference's
-    inference mode; ``--tile_size 0``)."""
+    inference mode; ``--tile_size 0``).  A folded apply's ``min_halo`` is
+    replicate-padded around the image and cropped off its output."""
 
     def __init__(self, apply_fn: Callable, scale: int,
                  device="cuda") -> None:
         self.scale = scale
         self.device = resolve_device(device)
+        self.min_halo = required_min_halo(apply_fn)
         self._apply_fn = apply_fn
 
-    def warmup_many(self, imgs) -> None:
+    def warmup_many(self, imgs, se: bool = False) -> None:
         """One forward per distinct image shape (kernel builds, cuDNN
-        algorithm searches) before a timing loop."""
-        for shape in {im.shape for im in imgs}:
-            self.upscale(np.zeros(shape, np.uint8))
+        algorithm searches) before a timing loop; ``se``: the float
+        forwards of the self-ensemble, transposed shapes included."""
+        shapes = {im.shape for im in imgs}
+        if se:
+            shapes |= {(w, h, c) for h, w, c in shapes}
+        for shape in shapes:
+            img = np.zeros(shape, np.uint8)
+            if se:
+                self.upscale_float(img)
+            else:
+                self.upscale(img)
+
+    def _sr(self, lr_u8: np.ndarray, fn: Callable) -> torch.Tensor:
+        x = normalize_uint8(_as_device_batch(lr_u8, self.device, 3))[None]
+        mh, s = self.min_halo, self.scale
+        if not mh:
+            return fn(x)[0]
+        sr = fn(_edge_pad_capped(x, (mh, mh, mh, mh)))[0]
+        return sr[mh * s:sr.shape[0] - mh * s, mh * s:sr.shape[1] - mh * s]
 
     @torch.no_grad()
     def upscale(self, lr_u8: np.ndarray) -> np.ndarray:
-        x = normalize_uint8(_as_device_batch(lr_u8, self.device, 3))[None]
-        return denormalize_to_uint8(self._apply_fn(x)[0]).cpu().numpy()
+        fn, use_u8 = select_uint8_apply(self._apply_fn)
+        sr = self._sr(lr_u8, fn)
+        return (sr if use_u8 else denormalize_to_uint8(sr)).cpu().numpy()
 
-    def upscale_many(self, imgs) -> list:
+    @torch.no_grad()
+    def upscale_float(self, lr_u8: np.ndarray) -> np.ndarray:
+        """HWC uint8 -> unquantised float32 SR on the [0, 255] scale (the
+        self-ensemble averages these and rounds once)."""
+        return _to_255(self._sr(lr_u8, self._apply_fn)).cpu().numpy()
+
+    def upscale_many(self, imgs, se: bool = False) -> list:
+        if se:
+            return [self_ensemble_upscale(self, img) for img in imgs]
         return [self.upscale(img) for img in imgs]
 
 
@@ -173,30 +251,67 @@ class BatchTiledUpscaler:
         return math.ceil(h / th), math.ceil(w / tw), th, tw
 
     @torch.no_grad()
-    def upscale_batch_device(self, imgs_u8) -> torch.Tensor:
+    def upscale_batch_device(self, imgs_u8,
+                             float_out: bool = False) -> torch.Tensor:
         """[B, H, W, 3] uint8 (numpy or tensor) -> padded-canvas uint8
-        tensor on the device (crop to H*s x W*s for the true image)."""
+        tensor on the device (crop to H*s x W*s for the true image); with
+        ``float_out`` the canvas is unquantised float32 on the [0, 255]
+        scale (the self-ensemble's branches)."""
         imgs = _as_device_batch(imgs_u8, self.device, 4)
         bsz, h, w = imgs.shape[:3]
         s = self.scale
         nh, nw, th, tw = self.grid(bsz, h, w)
         ov_h, ov_w = self._ov_for(nh), self._ov_for(nw)
+        tile_fn, use_u8 = select_uint8_apply(self._apply_fn, float_out)
         x = _edge_pad_capped(normalize_uint8(imgs),
                              (ov_h, nh * th - h + ov_h,
                               ov_w, nw * tw - w + ov_w))
         canvas = torch.zeros((bsz, nh * th * s, nw * tw * s, 3),
-                             dtype=torch.uint8, device=self.device)
+                             dtype=torch.float32 if float_out else torch.uint8,
+                             device=self.device)
         for i in range(nh):
             for j in range(nw):
                 tiles = x[:, i * th:i * th + th + 2 * ov_h,
                           j * tw:j * tw + tw + 2 * ov_w]
-                sr = self._apply_fn(tiles)
-                core = sr[:, ov_h * s:(ov_h + th) * s,
-                          ov_w * s:(ov_w + tw) * s]
+                core = tile_fn(tiles)[:, ov_h * s:(ov_h + th) * s,
+                                      ov_w * s:(ov_w + tw) * s]
                 canvas[:, i * th * s:(i + 1) * th * s,
-                       j * tw * s:(j + 1) * tw * s] = \
-                    denormalize_to_uint8(core)
+                       j * tw * s:(j + 1) * tw * s] = (
+                    core if use_u8 else _to_255(core) if float_out
+                    else denormalize_to_uint8(core))
         return canvas
+
+    @torch.no_grad()
+    def upscale_batch_se_device(self, imgs_u8) -> torch.Tensor:
+        """Geometric x8 self-ensemble of a batch on the device: the eight
+        dihedral transforms through the float canvas, each inverted,
+        averaged unquantised in float32 at the true image size (a
+        transposed branch has another padded grid), rounded once.
+        Returns [B, H*s, W*s, 3] uint8, already cropped."""
+        x0 = _as_device_batch(imgs_u8, self.device, 4)
+        h, w = x0.shape[1:3]
+        s = self.scale
+        acc = None
+        for t in range(8):
+            img = x0
+            if t & 1:
+                img = torch.flip(img, (1,))
+            if t & 2:
+                img = torch.flip(img, (2,))
+            if t & 4:
+                img = img.transpose(1, 2)
+            h2, w2 = (w, h) if t & 4 else (h, w)
+            sr = self.upscale_batch_device(img, float_out=True)[
+                :, :h2 * s, :w2 * s]
+            if t & 4:
+                sr = sr.transpose(1, 2)
+            if t & 2:
+                sr = torch.flip(sr, (2,))
+            if t & 1:
+                sr = torch.flip(sr, (1,))
+            acc = sr if acc is None else acc + sr
+        return torch.clamp(torch.floor(acc / 8.0 + 0.5), 0.0, 255.0
+                           ).to(torch.uint8)
 
     def upscale_batch(self, imgs_u8) -> np.ndarray:
         """Host-side convenience: returns [B, H*s, W*s, 3] uint8."""
@@ -214,28 +329,37 @@ class BatchTiledUpscaler:
             for start in range(0, len(idxs), batch_size):
                 yield shape, idxs[start:start + batch_size]
 
-    def warmup_many(self, imgs, batch_size: int = 8) -> None:
+    def warmup_many(self, imgs, batch_size: int = 8,
+                    se: bool = False) -> None:
         """Run one batch of every distinct (batch, shape) that
         :meth:`upscale_many` will see, so kernel builds, cuDNN algorithm
-        searches and allocator growth land before a timing loop."""
+        searches and allocator growth land before a timing loop; ``se``:
+        the self-ensemble's (both orientations) instead."""
         seen = set()
         for shape, chunk in self._chunks(imgs, batch_size):
             key = (len(chunk),) + tuple(shape)
             if key not in seen:
                 seen.add(key)
-                self.upscale_batch_device(np.zeros(key, np.uint8))
+                z = np.zeros(key, np.uint8)
+                if se:
+                    self.upscale_batch_se_device(z)
+                else:
+                    self.upscale_batch_device(z)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def upscale_many(self, imgs, batch_size: int = 8) -> list:
+    def upscale_many(self, imgs, batch_size: int = 8,
+                     se: bool = False) -> list:
         """Upscale a list of HWC uint8 images of possibly mixed sizes,
-        one device batch per same-shape chunk; order is preserved."""
+        one device batch per same-shape chunk (``se``: its x8
+        self-ensemble); order is preserved."""
         results: list = [None] * len(imgs)
         for shape, chunk in self._chunks(imgs, batch_size):
             batch = np.stack([imgs[i] for i in chunk])
             h, w = shape[:2]
-            out = self.upscale_batch_device(batch)[
-                :, :h * self.scale, :w * self.scale].cpu().numpy()
+            out = (self.upscale_batch_se_device(batch) if se
+                   else self.upscale_batch_device(batch)[
+                       :, :h * self.scale, :w * self.scale]).cpu().numpy()
             for k, i in enumerate(chunk):
                 results[i] = out[k]
         return results

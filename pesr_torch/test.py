@@ -11,7 +11,13 @@ Weights: an EDSR-style ``.pth`` (``pesr_tpu.convert.save_generator_torch``
 writes one from a JAX checkpoint), a checkpoint directory of
 ``python -m pesr_torch.train`` (its newest ``step_<K>``, ``best/``, or
 any directory holding ``generator.pth``; the EMA copy is preferred), or
-random init from ``--seed``.
+random init from ``--seed``; ``--interp_model`` blends a second set into
+them (network interpolation).
+
+Tiled modes run the folded upsampler unless ``--no_fold`` is given;
+whole-image mode (``--tile_size 0``) keeps the chain, as the JAX
+``test.py`` does.  ``--self_ensemble`` averages the x8 dihedral
+transforms in either engine.
 """
 
 from __future__ import annotations
@@ -29,25 +35,17 @@ from pesr_torch.metrics import calc_psnr, calc_ssim
 from pesr_torch.models.generator import Generator
 from pesr_torch.models.kernel_apply import KernelApply
 from pesr_torch.ops.tiling import BatchTiledUpscaler, WholeImageUpscaler
-from pesr_torch.training.checkpoint import restore_generator_params
+from pesr_torch.training.checkpoint import (interpolate_params,
+                                             restore_generator_params)
 from pesr_torch.utils.device import resolve_device
 from pesr_torch.utils.image_io import imwrite_uint8
 from pesr_torch.utils.logging import AverageMeter
 
 
-def build_generator(opts: Opts, device: torch.device) -> Generator:
-    """The generator of ``opts``, with weights from ``--model_path`` (a
-    ``.pth`` or a port checkpoint directory) or random init from
-    ``--seed``."""
-    arch = dict(scale=opts.scale, num_blocks=opts.num_blocks,
-                num_channels=opts.num_channels, res_scale=opts.res_scale,
-                device=device)
-    path = opts.model_path
-    if not path:
-        gen = Generator(**arch, seed=opts.seed)
-        print("WARNING: no --model_path; using randomly-initialized "
-              "generator")
-        return gen
+def _load_state_dict(path: str, opts: Opts) -> dict:
+    """Generator weights from ``path``: a port checkpoint directory (its
+    EMA copy when it has one) or an EDSR-style ``.pth``, as a state_dict
+    in the port's names."""
     sd = None
     if os.path.isdir(path):
         try:
@@ -63,15 +61,39 @@ def build_generator(opts: Opts, device: torch.device) -> Generator:
             f"pesr_tpu.convert.save_generator_torch (CLI: python -m "
             f"pesr_tpu.convert {path} out.pth --to_torch --scale "
             f"{opts.scale})")
-    gen = Generator(**arch, seed=None)
     if sd is None:
-        gen.load_state_dict(load_generator_pth(path, opts.num_blocks,
-                                               opts.scale), strict=True)
         print(f"loaded torch generator from {path}")
-    else:
-        gen.load_state_dict(state_dict_from_torch(sd, opts.num_blocks,
-                                                  opts.scale), strict=True)
-        print(f"loaded pesr_torch checkpoint (step {step}) from {path}")
+        return load_generator_pth(path, opts.num_blocks, opts.scale)
+    print(f"loaded pesr_torch checkpoint (step {step}) from {path}")
+    return state_dict_from_torch(sd, opts.num_blocks, opts.scale)
+
+
+def build_generator(opts: Opts, device: torch.device) -> Generator:
+    """The generator of ``opts``, with weights from ``--model_path`` (a
+    ``.pth`` or a port checkpoint directory), blended with
+    ``--interp_model``'s when given, or random init from ``--seed``."""
+    arch = dict(scale=opts.scale, num_blocks=opts.num_blocks,
+                num_channels=opts.num_channels, res_scale=opts.res_scale,
+                device=device)
+    if not opts.model_path:
+        if opts.interp_model:
+            raise SystemExit("--interp_model needs --model_path (the base "
+                             "PSNR-oriented checkpoint) to blend into")
+        gen = Generator(**arch, seed=opts.seed)
+        print("WARNING: no --model_path; using randomly-initialized "
+              "generator")
+        return gen
+    if opts.interp_model and not 0.0 <= opts.interp_alpha <= 1.0:
+        raise SystemExit(f"--interp_alpha {opts.interp_alpha} outside "
+                         f"[0, 1]")
+    sd = _load_state_dict(opts.model_path, opts)
+    if opts.interp_model:
+        sd = interpolate_params(sd, _load_state_dict(opts.interp_model, opts),
+                                opts.interp_alpha)
+        print(f"network interpolation: (1-a)*base + a*interp, "
+              f"a={opts.interp_alpha}")
+    gen = Generator(**arch, seed=None)
+    gen.load_state_dict(sd, strict=True)
     return gen
 
 
@@ -80,22 +102,28 @@ def run(argv=None) -> dict:
     SSIM / bicubic PSNR, MP/s, image and generator-forward counts)."""
     opts = opts_from_args(argv)
     device = resolve_device(opts.device)
-    apply_fn = KernelApply(build_generator(opts, device))
+    fold = opts.fold and opts.tile_size != 0
+    apply_fn = KernelApply(build_generator(opts, device), fold=fold)
+    if fold:
+        print("using folded upsampler (--no_fold for the plain chain)")
     samples = load_eval_set(opts)
     lrs = [s.lr for s in samples]
+    se = opts.self_ensemble
     if opts.tile_size == 0:
         engine = WholeImageUpscaler(apply_fn, opts.scale, device)
-        engine.warmup_many(lrs)
-        run_all = lambda: engine.upscale_many(lrs)  # noqa: E731
-        print("whole-image mode (no tiling)")
+        engine.warmup_many(lrs, se=se)
+        run_all = lambda: engine.upscale_many(lrs, se=se)  # noqa: E731
+        print("whole-image mode (no tiling)"
+              + (" + x8 self-ensemble" if se else ""))
     else:
         engine = BatchTiledUpscaler(apply_fn, opts.scale, opts.tile_size,
                                     opts.tile_overlap, device=device)
-        engine.warmup_many(lrs, opts.infer_batch)
+        engine.warmup_many(lrs, opts.infer_batch, se=se)
         run_all = lambda: engine.upscale_many(  # noqa: E731
-            lrs, opts.infer_batch)
+            lrs, opts.infer_batch, se=se)
         print(f"device-resident tiled mode (tile={opts.tile_size}, "
-              f"overlap={opts.tile_overlap})")
+              f"overlap={opts.tile_overlap})"
+              + (" + x8 self-ensemble" if se else ""))
 
     t0 = time.perf_counter()
     srs = run_all()  # numpy results: the device work has finished

@@ -183,6 +183,20 @@ def restore_discriminator_params(path: str, hr_size: int
     return load_discriminator_pth(path, hr_size)
 
 
+def interpolate_params(base: Dict[str, torch.Tensor],
+                       other: Dict[str, torch.Tensor],
+                       alpha: float) -> Dict[str, torch.Tensor]:
+    """Network interpolation (ESRGAN section 4.4): ``(1 - a) * base + a *
+    other`` per tensor, computed in float32 and cast back to base's dtype.
+    Blending a PSNR-oriented generator with its GAN fine-tune in weight
+    space trades PSNR for perceptual quality without retraining.  Raises
+    ValueError when the two state_dicts differ in names or shapes."""
+    validate_params_compat(base, other)
+    a = float(alpha)
+    return {k: ((1.0 - a) * v.float() + a * other[k].float()).to(v.dtype)
+            for k, v in base.items()}
+
+
 def validate_params_compat(expected: Dict[str, torch.Tensor],
                            restored: Dict[str, Any],
                            what: str = "generator") -> None:

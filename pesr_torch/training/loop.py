@@ -9,7 +9,10 @@ the kernels), then PSNR/SSIM self-validation on ``num_valids`` images of the
 validation set through the tiled engine (``BatchTiledUpscaler``, tile
 and overlap as the JAX package's training tiler) on a ``KernelApply``
 built from the current or EMA weights, JSONL/stdout scalars, and
-snapshots.  Ctrl-C saves a snapshot of the interrupted step before
+snapshots.  With ``--fold_train`` both the steps and the validation run
+through the folded upsampler (as the JAX loop evaluates its train
+apply); the engine pads and crops the fold's border band.  Ctrl-C saves
+a snapshot of the interrupted step before
 exiting, so ``--resume`` continues from it.
 """
 
@@ -82,6 +85,8 @@ def run_training(opts) -> Dict[str, float]:
              else "cpu")
     print(f"device: {where}, phase={opts.phase}, compute "
           f"{opts.compute_dtype}")
+    if opts.fold_train:
+        print("generator apply: folded upsampler (--fold_train)")
 
     state = create_generator_state(opts, device)
     if opts.pretrained_model:
@@ -236,8 +241,8 @@ def _train_epochs(opts, state, step_fn, aug, train_iter, logger, summary,
 
 def _validate(opts, state, logger, summary, box, extra) -> None:
     """Self-validation of the EMA weights when there are any (what the
-    best checkpoint and inference use), else of the live ones; a new best
-    PSNR writes ``best/``."""
+    best checkpoint and inference use), else of the live ones, folded
+    when the steps are; a new best PSNR writes ``best/``."""
     if "eval_samples" not in box:
         try:
             box["eval_samples"] = datasets.load_eval_set(
@@ -247,7 +252,7 @@ def _validate(opts, state, logger, summary, box, extra) -> None:
             return
     apply_fn = KernelApply(
         state.ema if state.ema is not None else state.generator,
-        COMPUTE_DTYPES[opts.compute_dtype])
+        COMPUTE_DTYPES[opts.compute_dtype], fold=opts.fold_train)
     try:
         val = evaluate(opts, apply_fn, samples=box["eval_samples"])
     except EvalSkip as e:

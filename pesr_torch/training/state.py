@@ -44,7 +44,8 @@ def make_lr_schedule(opts) -> Callable[[int], float]:
 @dataclasses.dataclass
 class TrainState:
     """What a train step updates in place.  ``apply`` is the forward the
-    step differentiates (:class:`KernelTrainApply` on ``generator``);
+    step differentiates (:class:`KernelTrainApply` on ``generator``,
+    folded or not);
     ``ema`` is a copy of the generator holding the parameter average
     when ``--ema_decay > 0``.  The GAN phase also sets
     ``discriminator`` and ``d_optimizer`` (:func:`add_discriminator`),
@@ -75,14 +76,17 @@ def create_generator_state(opts, device: torch.device,
                            ) -> TrainState:
     """A generator from ``opts`` (random init from ``opts.seed``, or the
     given one), Adam over its parameters and the kernel-backed train
-    apply in ``opts.compute_dtype``."""
+    apply in ``opts.compute_dtype``, through the folded upsampler when
+    ``opts.fold_train`` (JAX's ``configure_generator_apply``; the
+    parameters and snapshots stay those of the plain generator)."""
     if generator is None:
         generator = Generator(opts.scale, opts.num_blocks, opts.num_channels,
                               opts.res_scale, device=device, seed=opts.seed)
     return TrainState(generator, _adam(generator, opts),
                       make_lr_schedule(opts),
                       KernelTrainApply(generator,
-                                       COMPUTE_DTYPES[opts.compute_dtype]))
+                                       COMPUTE_DTYPES[opts.compute_dtype],
+                                       fold=opts.fold_train))
 
 
 def _adam(module: torch.nn.Module, opts) -> torch.optim.Optimizer:

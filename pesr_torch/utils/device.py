@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -25,3 +27,23 @@ def host_to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     if device.type != "cuda":
         return t.to(device)
     return t.pin_memory().to(device, non_blocking=True)
+
+
+@contextlib.contextmanager
+def full_f32(device: torch.device):
+    """float32 matmuls and cuDNN convs in full f32 (no TF32) on a CUDA
+    device for the block, whatever the process set: cuDNN's convs default
+    to TF32 (a 10-bit mantissa, ~1e-3 relative), which neither the LR
+    synthesis' 0.05 dB parity budget nor a fold of the upsampler survives."""
+    if device.type != "cuda":
+        yield
+        return
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = before

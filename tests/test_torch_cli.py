@@ -31,7 +31,7 @@ def test_cli_on_cpu_writes_pngs_and_prints_psnr(tmp_path, capsys):
 def test_cli_whole_image_mode_matches_tiled_auto(tmp_path):
     a = cli.run(_TINY + ["--device", "cpu", "--tile_size", "0",
                          "--output_dir", str(tmp_path / "a")])
-    b = cli.run(_TINY + ["--device", "cpu", "--output_dir",
+    b = cli.run(_TINY + ["--device", "cpu", "--no_fold", "--output_dir",
                          str(tmp_path / "b")])
     # 120 x 120 LR images fit one auto tile: the same whole-image forward
     assert a["psnr"] == b["psnr"] and a["forwards"] == 6 and b["forwards"] == 2
@@ -44,8 +44,9 @@ def test_cli_without_device_raises_when_cuda_is_missing(tmp_path):
         cli.main(_TINY + ["--output_dir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("flag", [["--quant", "int8"], ["--fold"],
-                                  ["--self_ensemble"], ["--mesh_shape", "4"],
+@pytest.mark.parametrize("flag", [["--quant", "int8"], ["--use_pallas"],
+                                  ["--mesh_axis", "tiles"],
+                                  ["--mesh_shape", "4"],
                                   ["--export_artifact", "x"]])
 def test_cli_rejects_flags_the_port_lacks(flag):
     with pytest.raises(SystemExit):
@@ -92,7 +93,8 @@ def test_port_imports_nothing_of_jax_or_pesr_tpu():
             "pesr_torch/training/state.py",
             "pesr_torch/training/checkpoint.py",
             "pesr_torch/models/discriminator.py",
-            "pesr_torch/models/vgg.py", "pesr_torch/convert.py"} <= scanned
+            "pesr_torch/models/vgg.py", "pesr_torch/convert.py",
+            "pesr_torch/models/fold.py"} <= scanned
     bad = [(os.path.relpath(f, _REPO), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                   "pesr_tpu")]
@@ -117,8 +119,9 @@ def test_png_writer_round_trips_through_pillow(tmp_path):
 
 def test_demo_checkpoint_reproduces_the_jax_psnr(tmp_path):
     """demo/checkpoint (x4, 8 x 64) restored through pesr_tpu, written as a
-    .pth and run through the port's kernel path (bf16, plain versions on
-    the CPU): demo/README.md measures 44.11 dB on synthetic."""
+    .pth and run through the port's kernel path with the CLI's default
+    folded upsampler (bf16, plain versions on the CPU): demo/README.md
+    measures 44.11 dB on synthetic."""
     from pesr_tpu.convert import save_generator_torch
     from pesr_tpu.training.checkpoint import restore_generator_params
     params, _ = restore_generator_params(os.path.join(_REPO, "demo",

@@ -93,8 +93,9 @@ class Pair:
         self.jopts = jax_config.Opts(**kw, compute_dtype="float32")
         self.popts = Opts(**kw, compute_dtype="float32", device="cpu")
         jo, hr = self.jopts, self.jopts.hr_patch_size
-        self.g = _jax_state(jo, jax_loop.build_generator(jo), 0,
-                            (1, PATCH, PATCH, 3))
+        self.g = jax_loop.configure_generator_apply(
+            jo, _jax_state(jo, jax_loop.build_generator(jo), 0,
+                           (1, PATCH, PATCH, 3)))
         self.disc = JaxDiscriminator(spectral_norm=jo.spectral_norm,
                                      dtype=jnp.float32, **D_KW)
         self.d = _jax_state(jo, self.disc, 1, (2, hr, hr, 3))
@@ -284,13 +285,15 @@ CASES = {
     "GP+SN": dict(use_gp=True, spectral_norm=True),
     "EMA": dict(ema_decay=0.9),
     "accum2": dict(grad_accum=2),
+    "fold_train": dict(fold_train=True),
 }
 
 
 def run_case(case):
     """Two steps of ``CASES[case]`` on both sides, every check after each
-    (the cases are split between this file and
-    tests/test_torch_gan_step_more.py, so that each stays short)."""
+    (the cases are split between this file,
+    tests/test_torch_gan_step_more.py and tests/test_torch_fold_train.py,
+    so that each stays short)."""
     pair = Pair(**CASES[case])
     d_atol = 2e-5 if pair.jopts.use_gp else 1e-6
     st = pair.state

@@ -442,7 +442,7 @@ def test_cli_without_device_raises_when_cuda_is_missing(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--phase", "qat"], ["--fold_train"], ["--use_pallas"],
+    ["--phase", "qat"], ["--quant", "int8"], ["--use_pallas"],
     ["--remat"], ["--unroll_body"], ["--mesh_shape", "4"], ["--distributed"],
     ["--profile_dir", "p"], ["--eval_pi"], ["--trim_host_heap"],
     ["--compute_dtype", "float32"]])

@@ -32,9 +32,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               step of the kernel path (bf16) against the plain f32
               ``Generator`` from the same weights and batch; a profile of
               one step; then ``run_training`` on ``synthetic`` for 2
-              epochs with self-validation and snapshots: the loss falls,
-              launch counts per forward, steps/s and HR MP/s, and the best
-              snapshot reloads through ``pesr_torch.test``.
+              epochs with self-validation (PSNR, SSIM and PI) and
+              snapshots: the loss falls, launch counts per forward, steps/s
+              and HR MP/s, a finite ``val_pi``, and the best snapshot
+              reloads through ``pesr_torch.test``.  The kernels at the eval
+              forwards' tile batch ([8, 112, 112] and the stages above it),
+              timed; then self-validation as the loop runs it (the
+              host-stitch ``TiledUpscaler``, the best snapshot on
+              ``KernelApply``) on two synthetic eval images and one whose
+              LR side is <= 96 px: launches, the SR and PI seconds,
+              ``val_pi`` against the PI recomputed on the same SR arrays,
+              and the uint8 output against the plain f32 ``Generator``
+              through the same engine.
 5. gan     -- the GAN fine-tune at the flagship recipe and the JAX
               package's defaults (RSGAN, alpha_vgg 50, alpha_gan 1,
               alpha_tv 1e-6; the SRGAN discriminator, 64-512 with dense
@@ -52,7 +61,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               steps/s, ``discriminator.pth``, ``best/`` reloaded by
               ``pesr_torch.test``).
    Phases 3-5 drive the upsampler chain (``--no_fold``,
-   ``fold_train=False``).
+   ``fold_train=False``).  Every ``run_training`` self-validates with
+   PSNR, SSIM and the perceptual index (``--eval_pi``, the default).
 6. fold    -- the folded upsampler, the default of both CLIs: the
               flagship fold derived on the card (impulse probe and
               analytic, with TF32 allowed: the fold's guard must scope
@@ -73,6 +83,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               CLI resolves it (folded); one fold-train GAN step against
               its plain f32 step, with the plain step's updated D on
               both sides and each with its own.
+7. qat     -- the QAT phase (``--phase qat``), whose W8A8 fake-quant
+              convs are library convs (cuDNN), as JAX's are ``lax.conv``:
+              one flagship QAT step in bf16 against the same step in f32
+              (TF32 off) on weights with an outlier output channel per
+              body conv, with planted faults that must fail its limits;
+              ``run_training --phase qat`` (launches no kernel; steps/s,
+              ``val_psnr`` of the fake-quant forward, ``val_pi``).
 
 Prints a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or pesr_tpu.
@@ -369,19 +386,15 @@ def main_path_tile_batch(min_halo: int = 0):
 
 
 def eval_tile_batches(opts) -> list:
-    """The tile batches ``training.loop.evaluate`` hands the kernels: the
-    validation set of ``opts`` chunked and tiled as its engine does (with
-    the fold's ``min_halo`` when ``opts.fold_train``)."""
-    from pesr_torch.data.datasets import load_eval_set
-    from pesr_torch.ops.tiling import BatchTiledUpscaler
+    """The tile batches ``training.loop.evaluate`` hands the kernels: its
+    ``TiledUpscaler`` cuts every image into square tiles of ``tile_size``
+    + 2 x ``tile_overlap`` (raised to the fold's ``min_halo`` when
+    ``opts.fold_train``) and runs them in full batches of
+    ``infer_batch``, so there is one shape whatever the images."""
     from pesr_torch.scales import fold_min_halo
     halo = fold_min_halo(opts.scale) if opts.fold_train else 0
-    lrs = [s.lr for s in load_eval_set(opts, opts.valid_dataset,
-                                       opts.num_valids)]
-    return sorted({tile_batch(len(chunk), *shape[:2], opts.tile_size,
-                              opts.tile_overlap, halo)[0]
-                   for shape, chunk in BatchTiledUpscaler._chunks(
-                       lrs, opts.infer_batch)})
+    t = opts.tile_size + 2 * max(opts.tile_overlap, halo)
+    return [(opts.infer_batch, t, t)]
 
 
 def phase_kernels(card: str) -> dict:
@@ -857,12 +870,16 @@ def phase_train(card: str, workdir: str) -> dict:
                  log_every=log_every, snapshot_every=1, keep_snapshots=1,
                  check_point=os.path.join(workdir, "pretrain"),
                  fold_train=False, device="cuda")
-    print("[train] the eval forwards' tile batches, C = "
-          f"{c}", flush=True)
-    for b, th, tw in eval_tile_batches(topts):
-        check_resblock(b, th, tw, c, 0.1, seed=14)
-        check_upsampler(b, th, tw, c, seed=15)
-        check_upsampler(b, 2 * th, 2 * tw, c, seed=16)
+    ((b, th, tw),) = eval_tile_batches(topts)
+    print(f"[train] the eval forwards' tile batch [{b},{th},{tw}] "
+          f"(TiledUpscaler: tile {topts.tile_size} + 2 x "
+          f"{topts.tile_overlap}, batch {topts.infer_batch}) and its x2 "
+          f"stages, C = {c}", flush=True)
+    ev_rb = check_resblock(b, th, tw, c, 0.1, seed=14, timing=True)
+    ev_up1 = check_upsampler(b, th, tw, c, seed=15, timing=True)
+    ev_up2 = check_upsampler(b, 2 * th, 2 * tw, c, seed=16, timing=True)
+    print_times(ev_rb, ev_up1, ev_up2, card)
+    torch.cuda.empty_cache()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     summary = run_training(topts)
@@ -883,6 +900,11 @@ def phase_train(card: str, workdir: str) -> dict:
           f"{[round(v, 5) for v in l1s]}", flush=True)
     if not all(map(math.isfinite, l1s)) or not l1s[-1] < l1s[0]:
         fail(f"run_training: the L1 loss did not fall ({l1s})")
+    print(f"  last self-validation: val_psnr {summary['val_psnr']:.4f} dB, "
+          f"val_ssim {summary['val_ssim']:.4f}, val_pi "
+          f"{summary.get('val_pi')}", flush=True)
+    if not math.isfinite(summary.get("val_pi", math.nan)):
+        fail(f"run_training: val_pi {summary.get('val_pi')} is not finite")
     sps = steady_rate(recs, spe, card)
     mps = sps * bt * (p * SCALE) ** 2 / 1e6
     run_sps = summary["steps"] / run_s
@@ -907,11 +929,97 @@ def phase_train(card: str, workdir: str) -> dict:
     print(f"  best/ (val_psnr {summary.get('best_psnr')}) reloads "
           f"through pesr_torch.test: PSNR {res['psnr']:.3f} dB",
           flush=True)
+    ev = _tiled_eval(card, topts, best)
+    ev.update({"fused_resblock": ev_rb, "fused_upsampler_stage": ev_up2,
+               "upsampler_stage1": ev_up1})
     return {"fused_resblock": rb, "fused_upsampler_stage": up2,
             "upsampler_stage1": up1, "launches": counts,
             "launches_per_step": per_step, "steps_per_s": sps,
             "mpx_per_s": mps, "run_steps_per_s": run_sps, "profile": prof,
-            "l1": l1s, "best": best}
+            "l1": l1s, "best": best, "eval": ev}
+
+
+# The LR size of the self-validation check's third image: one side <= 96
+# px, so the whole image is one tile whose outer border the engine
+# replicate-pads.
+C1_LR_HW = (60, 88)
+
+
+def _tiled_eval(card: str, opts, best: str) -> dict:
+    """Self-validation as ``training.loop`` runs it: the host-stitch
+    ``TiledUpscaler`` of ``opts`` on ``KernelApply`` (bf16, chain) of the
+    ``best`` snapshot, on the two synthetic eval images at x4 and one
+    image of ``C1_LR_HW``.  Launch counts of that eval (counters set to 0
+    just before it), the SR and PI seconds, ``val_pi`` against the PI
+    recomputed on the same SR arrays, and each uint8 output against the
+    plain f32 ``Generator`` (TF32 off) through the same engine."""
+    import numpy as np
+    from pesr_torch.data.datasets import (EvalSample, SyntheticImages,
+                                          host_bicubic_downsample,
+                                          load_eval_set)
+    from pesr_torch.metrics import perceptual_index
+    from pesr_torch.models.generator import Generator
+    from pesr_torch.models.kernel_apply import KernelApply
+    from pesr_torch.ops import kernels
+    from pesr_torch.training import checkpoint as ckpt
+    from pesr_torch.training.loop import make_eval_tiler, score_outputs
+    sd, _ = ckpt.restore_generator_params(best)
+    gen = Generator(SCALE, BLOCKS, CHANNELS, seed=None)
+    gen.load_state_dict(sd)
+    samples = load_eval_set(opts, opts.valid_dataset, opts.num_valids)
+    hr = SyntheticImages(1, C1_LR_HW[0] * SCALE, C1_LR_HW[1] * SCALE,
+                         seed=9).get(0)
+    samples.append(EvalSample("lr_side_le_96", host_bicubic_downsample(
+        hr, SCALE), hr))
+    lrs = [s.lr for s in samples]
+    print(f"[train] self-validation through TiledUpscaler on "
+          f"{[s.lr.shape[:2] for s in samples]} LR images, the best "
+          f"snapshot on KernelApply (bf16)", flush=True)
+    apply_fn = KernelApply(gen)
+    tiler = make_eval_tiler(opts, apply_fn)
+    tiler.upscale_many(lrs)      # warm-up: cuDNN's algorithm searches
+    apply_fn.forwards = 0
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    srs = tiler.upscale_many(lrs)          # ends with the cores' D2H copy
+    sr_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    fwd = apply_fn.forwards
+    tiles = sum(-(-h // opts.tile_size) * -(-w // opts.tile_size)
+                for h, w in (lr.shape[:2] for lr in lrs))
+    want = {"fused_resblock": BLOCKS * fwd, "fused_upsampler_stage": 2 * fwd}
+    print(f"  {tiles} tiles in {fwd} forwards of batch {opts.infer_batch}: "
+          f"launches {counts} (expected {want})", flush=True)
+    if fwd != -(-tiles // opts.infer_batch) or counts != want:
+        fail(f"self-validation: launch counts {counts} != {want}")
+    t0 = time.perf_counter()
+    val = score_outputs(opts, samples, srs, compute_pi=True)
+    pi_s = time.perf_counter() - t0
+    pis = [perceptual_index(sr) for sr in srs]
+    d_pi = abs(val["val_pi"] - float(np.mean(pis)))
+    print(f"  {json.dumps(val)}; per-image PI {[round(v, 4) for v in pis]}; "
+          f"|val_pi - mean PI recomputed| {d_pi:.3g} (limit 1e-9)",
+          flush=True)
+    if not (math.isfinite(val["val_pi"]) and d_pi <= 1e-9):
+        fail("self-validation: val_pi is not finite or not the mean PI of "
+             "its SR outputs")
+    print(f"  eval wall: SR {sr_s:.3f} s (device forwards, D2H of the "
+          f"cores, host stitch), PI {pi_s:.3f} s (NIQE + Ma on the host, "
+          f"{len(srs)} images of {[sr.shape[:2] for sr in srs]}) [{card}]",
+          flush=True)
+    plain = make_eval_tiler(opts, gen).upscale_many(lrs)
+    for s, ours, ref in zip(samples, srs, plain):
+        d = np.abs(ours.astype(np.int16) - ref.astype(np.int16))
+        print(f"  {s.name} {s.lr.shape[:2]}: KernelApply (bf16) vs plain "
+              f"Generator (f32) through the same engine, uint8: max "
+              f"{int(d.max())} LSB, mean {float(d.mean()):.4f} LSB "
+              f"(tolerance: max <= {LSB_MAX_TOL}, mean <= {LSB_MEAN_TOL})",
+              flush=True)
+        if d.max() > LSB_MAX_TOL or d.mean() > LSB_MEAN_TOL:
+            fail(f"self-validation output of {s.name} disagrees with the "
+                 f"plain Generator's")
+    return {"launches": counts, "forwards": fwd, "sr_s": sr_s,
+            "pi_s": pi_s, "val": val}
 
 
 # GAN phase: one flagship GAN step at the JAX defaults (RSGAN, alpha_vgg
@@ -1843,6 +1951,208 @@ def phase_fold(card: str, main_mps: float, train_sps: float,
     return res
 
 
+# QAT phase.  One flagship QAT step in bf16 vs the same step in f32 (TF32
+# off), same weights and batch.  bf16 rounds each fake-quant conv's
+# output, and the next layer's quantizer turns that rounding into
+# one-step flips of ~1/4 of its integers (a step is 1/127 of a channel's
+# amax, bf16's rounding ~2^-9 of a value): noise of the size of bf16's
+# own, through 65 quantized convs.  Emulated on the CPU (12 blocks x 128,
+# batch 8 of 24^2): |d L1| 2.6e-5, least cosine 0.997.  The weights get
+# one outlier output channel (x16) in every body conv, as trained convs
+# have, so that per-tensor weight scales (every other channel quantized
+# on 1/16 of the grid) show: the emulation read cosine 0.59 for them, 0
+# with the STE's gradient to the activations cut.  First flagship
+# reading on the H100: |d L1| 6.9e-4 (1.4e-3 of L1: the bf16 rounding
+# of each conv's integer sums is not averaged out by 65 requantizations
+# as the plain path's noise is), least cosine 0.9955; per-tensor scales
+# 1.6e-2 / 0.50, the STE cut 6.9e-4 / 0.  The limits are ~4x the sound
+# reading (in 1 - cosine for the cosine).
+QAT_L1_TOL, QAT_COS_FLOOR = 3e-3, 0.98
+QAT_FAULTS = ("the STE detached from the activations (no gradient to x)",
+              "per-tensor weight scales in place of per-output-channel")
+QAT_SPE, QAT_EPOCHS, QAT_LOG_EVERY = 20, 2, 10
+
+
+def _per_tensor_fake_quant_conv(x, weight, bias, dtype):
+    """``qat.fake_quant_conv`` with one weight scale for the whole
+    kernel: the planted fault of QAT_FAULTS[1]."""
+    import torch
+    import torch.nn.functional as F
+    from pesr_torch.models import qat
+    xf = x.float()
+    s_in = xf.detach().abs().amax(dim=(0, 1, 2)).clamp_min(1e-6) / 127.0
+    xq = qat._clip127(qat._ste_round(xf / s_in))
+    w_fold = weight.float() * s_in[None, :, None, None]
+    s_w = (w_fold.detach().abs().amax().clamp_min(1e-12) / 127.0).expand(
+        weight.shape[0])
+    wq = qat._clip127(qat._ste_round(w_fold / s_w[:, None, None, None]))
+    y = F.conv2d(xq.to(dtype).permute(0, 3, 1, 2), wq.to(dtype), padding=1)
+    return (y.permute(0, 2, 3, 1).float() * s_w + bias.float()).to(dtype)
+
+
+class _QatFault:
+    """Plants one of QAT_FAULTS in ``pesr_torch.models.qat`` while
+    active."""
+
+    def __init__(self, fault: str) -> None:
+        self.fault = fault
+
+    def __enter__(self):
+        from pesr_torch.models import qat
+        self.orig = orig = qat.fake_quant_conv
+        if self.fault == QAT_FAULTS[0]:
+            qat.fake_quant_conv = (lambda x, w, b, dtype: orig(
+                x.detach(), w, b, dtype))
+        else:
+            qat.fake_quant_conv = _per_tensor_fake_quant_conv
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from pesr_torch.models import qat
+        qat.fake_quant_conv = self.orig
+
+
+def _qat_weights():
+    """The seed-0 flagship generator's state_dict with output channel 0
+    of every body conv scaled by 16."""
+    import torch
+    from pesr_torch.models.generator import Generator
+    gen = Generator(SCALE, BLOCKS, CHANNELS, seed=0)
+    with torch.no_grad():
+        for name, p in gen.named_parameters():
+            if name.startswith("body.") and p.dim() == 4:
+                p[0].mul_(16.0)
+    return gen.state_dict()
+
+
+def _qat_step(opts, sd, batch):
+    """One QAT step of a fresh generator on ``sd``: (L1, {name:
+    gradient}, its train state); a gradient that never formed is 0."""
+    import torch
+    from pesr_torch.models.generator import Generator
+    from pesr_torch.training.state import create_generator_state
+    from pesr_torch.training.steps import make_pretrain_step
+    gen = Generator(SCALE, BLOCKS, CHANNELS, seed=None)
+    gen.load_state_dict(sd)
+    state = create_generator_state(opts, torch.device("cuda"), gen)
+    m = make_pretrain_step(opts)(state, *batch)
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for n, p in gen.named_parameters()}
+    return float(m["l1"]), grads, state
+
+
+def _qat_agreement(ours, ref):
+    import torch
+    cos, name = min((float(torch.nn.functional.cosine_similarity(
+        g.float().flatten(), ref[1][n].flatten(), dim=0)), n)
+        for n, g in ours[1].items())
+    return abs(ours[0] - ref[0]), cos, name
+
+
+def phase_qat(card: str, workdir: str) -> dict:
+    """The QAT phase: one flagship QAT step (bf16) against the same step
+    in f32, planted faults, the step's launches and time; then
+    ``run_training --phase qat`` as the train CLI resolves it."""
+    import torch
+    from pesr_torch.config import Opts, opts_from_args
+    from pesr_torch.ops import kernels
+    from pesr_torch.training.loop import run_training
+    from pesr_torch.training.steps import make_pretrain_step
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    bt, p = TRAIN_BATCH, TRAIN_PATCH
+    print(f"[qat] one QAT step at {BLOCKS}x{CHANNELS} x{SCALE}, batch {bt}, "
+          f"patch {p} (seed-0 weights, output channel 0 of every body conv "
+          f"x16): bf16 vs f32 (TF32 off); limits |d L1| <= {QAT_L1_TOL}, "
+          f"least gradient cosine >= {QAT_COS_FLOOR}", flush=True)
+    opts = Opts(scale=SCALE, num_blocks=BLOCKS, num_channels=CHANNELS,
+                batch_size=bt, patch_size=p, phase="qat", device="cuda")
+    opts32 = dataclasses.replace(opts, compute_dtype="float32")
+    sd = _qat_weights()
+    batch = _train_batch(seed=2)
+    ref = _qat_step(opts32, sd, batch)[:2]
+    kernels.reset_launch_counts()
+    ours = _qat_step(opts, sd, batch)
+    step_counts = kernels.launch_counts()
+    dl1, cos, name = _qat_agreement(ours, ref)
+    print(f"  L1 {ref[0]:.6f} (f32): bf16 |d L1| {dl1:.3e}; least gradient "
+          f"cosine {cos:.6f} ({name}); kernel launches {step_counts}",
+          flush=True)
+    if not (dl1 <= QAT_L1_TOL and cos >= QAT_COS_FLOOR):
+        fail("the bf16 QAT step disagrees with the f32 QAT step")
+    if any(step_counts.values()):
+        fail(f"the QAT step launched kernels: {step_counts}")
+    res = {"dl1": dl1, "cos": cos, "faults": {}}
+    for fault in QAT_FAULTS:
+        with _QatFault(fault):
+            f_dl1, f_cos, f_name = _qat_agreement(_qat_step(opts, sd, batch),
+                                                  ref)
+        res["faults"][fault] = (f_dl1, f_cos)
+        print(f"  planted fault '{fault}': |d L1| {f_dl1:.3e}, least cosine "
+              f"{f_cos:.6f} ({f_name})", flush=True)
+        if f_dl1 <= QAT_L1_TOL and f_cos >= QAT_COS_FLOOR:
+            fail(f"the QAT step limits pass the planted fault '{fault}'")
+    state = ours[2]
+    del ref, ours
+    torch.cuda.empty_cache()
+    step = make_pretrain_step(opts)
+    host_ms, wall_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, *batch)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        wall_ms.append(1e3 * (time.perf_counter() - t0))
+    res["host_ms"], res["step_ms"] = sorted(host_ms)[2], sorted(wall_ms)[2]
+    print(f"  one QAT step from an idle device: the host queues it in "
+          f"{res['host_ms']:.2f} ms, it ends {res['step_ms']:.2f} ms after "
+          f"it starts (medians of 5) [{card}]", flush=True)
+    res["profile"] = profile_breakdown(lambda: step(state, *batch), card,
+                                       top=8, host_top=6)
+    del state
+    torch.cuda.empty_cache()
+
+    ck = os.path.join(workdir, "qat")
+    topts = opts_from_args(
+        ["--phase", "qat", "--num_blocks", str(BLOCKS), "--num_channels",
+         str(CHANNELS), "--scale", str(SCALE), "--batch_size", str(bt),
+         "--patch_size", str(p), "--train_dataset", "synthetic",
+         "--valid_dataset", "synthetic", "--num_valids", "2",
+         "--steps_per_epoch", str(QAT_SPE), "--num_epochs", str(QAT_EPOCHS),
+         "--log_every", str(QAT_LOG_EVERY), "--snapshot_every", "1",
+         "--keep_snapshots", "1", "--check_point", ck], mode="train")
+    print(f"[qat] run_training --phase qat: {QAT_EPOCHS} epochs x {QAT_SPE} "
+          f"steps, eval (fake-quant forward) on 2 synthetic images each "
+          f"epoch", flush=True)
+    kernels.reset_launch_counts()
+    summary = run_training(topts)
+    counts = kernels.launch_counts()
+    print(f"  run_training: {summary['train_forwards']} training + "
+          f"{summary['eval_forwards']} eval forwards, kernel launches "
+          f"{counts} (the QAT path runs none)", flush=True)
+    if summary["train_forwards"] != QAT_SPE * QAT_EPOCHS or any(
+            counts.values()) or not summary["eval_forwards"]:
+        fail(f"QAT run_training: forwards {summary} / launches {counts}")
+    with open(os.path.join(ck, "qat.jsonl")) as f:
+        recs = [r for r in map(json.loads, f) if "l1" in r]
+    l1s = [r["l1"] for r in recs]
+    print(f"  L1 per {QAT_LOG_EVERY}-step window: "
+          f"{[round(v, 5) for v in l1s]}; val_psnr {summary.get('val_psnr')}"
+          f" dB, val_pi {summary.get('val_pi')}", flush=True)
+    if not (all(map(math.isfinite, l1s)) and l1s[-1] < l1s[0]
+            and math.isfinite(summary.get("val_psnr", math.nan))
+            and math.isfinite(summary.get("val_pi", math.nan))):
+        fail(f"QAT run_training: L1 {l1s}, val {summary}")
+    sps = steady_rate(recs, QAT_SPE, card)
+    print(f"  QAT training throughput after the first epoch: {sps:.3f} "
+          f"steps/s, {sps * bt * (p * SCALE) ** 2 / 1e6:.3f} HR MP/s at "
+          f"batch {bt} x {p * SCALE}^2 on {card}", flush=True)
+    res.update(steps_per_s=sps, val_psnr=summary["val_psnr"],
+               val_pi=summary["val_pi"])
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -1869,6 +2179,7 @@ def main() -> int:
         gan_res = phase_gan(card, train_res["best"], workdir)
         fold_res = phase_fold(card, main_res["mp_per_s"],
                               train_res["steps_per_s"], workdir)
+        phase_qat(card, workdir)
     sources = {"fused_resblock": ("pesr_torch/csrc/resblock.cu",
                                   "pesr_tpu/ops/pallas/resblock.py:96"),
                "fused_upsampler_stage": ("pesr_torch/csrc/upsampler.cu",
@@ -1894,7 +2205,11 @@ def main() -> int:
          "train_library_ms": train_res[name]["library_ms"],
          "gan_launches_per_step": gan_res["launches_per_step"][name],
          "fold_launches": fold_res["inference"]["launches"][name],
-         **fold_keys[name]}
+         **fold_keys[name],
+         **{f"eval_{k}": train_res["eval"][name][k]
+            for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                      "library_ms")},
+         "eval_launches": train_res["eval"]["launches"][name]}
         for name, (src, rep) in sources.items()]}
     print(json.dumps(line), flush=True)
     print(card, flush=True)

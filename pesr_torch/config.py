@@ -4,16 +4,18 @@
 Test mode has the single-device flow of the JAX ``test.py``: the folded
 upsampler (``--fold``, on by default; tiled modes only), the x8
 self-ensemble (``--self_ensemble``) and network interpolation
-(``--interp_model``, ``--interp_alpha``).  Train mode has both phases of
-the JAX package, ``--phase pretrain`` and ``--phase train`` (the GAN
-fine-tune, with JAX's loss flags, names and defaults), and
+(``--interp_model``, ``--interp_alpha``).  Train mode has the three
+phases of the JAX package, ``--phase pretrain``, ``--phase train`` (the
+GAN fine-tune, with JAX's loss flags, names and defaults) and ``--phase
+qat`` (L1 through the W8A8 fake-quant forward); ``--eval_pi`` (on by
+default: the PIRM perceptual index in every self-validation); and
 ``--fold_train``, which the CLI turns on unless ``--no_fold_train`` is
-given, as JAX's resolver does (the dataclass default stays off).  On/off
-flags have their ``--no_`` twins.  Flags the port does not implement yet
-are not in the parsers, so argparse rejects them instead of ignoring
-them: in test mode ``--quant``, ``--mesh_shape``, ``--export_artifact``,
-...; in train mode ``--phase qat``, ``--mesh_shape``, ``--distributed``,
-``--profile_dir``, ``--eval_pi``, ``--trim_host_heap``, ...  The port
+given, as JAX's resolver does (the dataclass default stays off; QAT
+ignores it).  On/off flags have their ``--no_`` twins.  Flags the port
+does not implement yet are not in the parsers, so argparse rejects them
+instead of ignoring them: in test mode ``--quant``, ``--mesh_shape``,
+``--export_artifact``, ...; in train mode ``--mesh_shape``,
+``--distributed``, ``--profile_dir``, ``--trim_host_heap``, ...  The port
 always runs its kernels (no ``--use_pallas``) and its recompute backward
 keeps only each block's input (no ``--remat``, no ``--unroll_body``), so
 JAX's resolver never steps aside for those.
@@ -45,7 +47,8 @@ class Opts:
     batch_size: int = 16
     num_repeats: int = 20         # epoch = image list x num_repeats
     # training
-    phase: str = "pretrain"       # "pretrain" (L1) | "train" (GAN)
+    phase: str = "pretrain"       # "pretrain" (L1) | "train" (GAN) |
+                                  # "qat" (L1, W8A8 fake-quant forward)
     pretrained_model: str = ""
     pretrained_d: str = ""        # discriminator init for the GAN phase
     learning_rate: float = 1e-4
@@ -76,6 +79,7 @@ class Opts:
     keep_snapshots: int = 0       # newest step_<K> dirs kept (0 = all)
     log_every: int = 50           # steps between scalar logs (0 = off)
     eval_every: int = 1           # epochs between self-validations (0 = off)
+    eval_pi: bool = True          # PIRM PI (NIQE + Ma) in self-validation
     resume: bool = False
     # inference (the training self-validation tiles as the JAX one: 96)
     model_path: str = ""
@@ -125,9 +129,9 @@ def build_parser(mode: str = "test") -> argparse.ArgumentParser:
     desc = {"test": "pesr_torch inference: tiled x-scale SR of an eval set "
                     "on the H100 kernels, PNGs out, PSNR/SSIM printed",
             "train": "pesr_torch training on the H100 kernels: the L1 "
-                     "pretrain phase or the GAN fine-tune (discriminator, "
-                     "VGG perceptual, TV and relativistic losses), with "
-                     "PSNR/SSIM self-validation and snapshots"}[mode]
+                     "pretrain phase, the GAN fine-tune (discriminator, "
+                     "VGG perceptual, TV and relativistic losses) or QAT, "
+                     "with PSNR/SSIM/PI self-validation and snapshots"}[mode]
     p = argparse.ArgumentParser(
         prog=f"python -m pesr_torch.{mode}", description=desc,
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
@@ -180,8 +184,10 @@ def build_parser(mode: str = "test") -> argparse.ArgumentParser:
     else:
         g = p.add_argument_group("training")
         g.add_argument("--phase", default=d.phase,
-                       choices=["pretrain", "train"],
-                       help="'pretrain' (L1) or 'train' (the GAN fine-tune)")
+                       choices=["pretrain", "train", "qat"],
+                       help="'pretrain' (L1), 'train' (the GAN fine-tune) "
+                            "or 'qat' (L1 through the W8A8 fake-quant "
+                            "forward)")
         g.add_argument("--pretrained_model", default=d.pretrained_model,
                        help="initial generator: a pesr_torch checkpoint "
                             "directory (EMA preferred)")
@@ -244,6 +250,9 @@ def build_parser(mode: str = "test") -> argparse.ArgumentParser:
                             "'best' is never pruned)")
         g.add_argument("--log_every", type=int, default=d.log_every)
         g.add_argument("--eval_every", type=int, default=d.eval_every)
+        _add_bool_flag(g, "eval_pi", d.eval_pi,
+                       "PIRM perceptual index (NIQE, Ma; on the host) in "
+                       "self-validation")
         _add_bool_flag(g, "resume", d.resume,
                        "resume the networks' and optimizers' state from "
                        "the newest snapshot under --check_point")

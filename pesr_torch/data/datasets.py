@@ -313,6 +313,14 @@ def _sample(name: str, hr: np.ndarray, lr: Optional[np.ndarray],
     return EvalSample(name, lr, hr[:h * scale, :w * scale])
 
 
+def _image_files(folder: str, max_images: Optional[int]) -> List[str]:
+    files = sorted(f for f in os.listdir(folder)
+                   if f.lower().endswith(_IMG_EXTS))
+    if not files:
+        raise FileNotFoundError(f"no images under {folder}")
+    return files if max_images is None else files[:max_images]
+
+
 def load_eval_set(opts, dataset: Optional[str] = None,
                   max_images: Optional[int] = None) -> List[EvalSample]:
     """Load a benchmark set as full images.
@@ -321,7 +329,9 @@ def load_eval_set(opts, dataset: Optional[str] = None,
     ``opts.seed + 1``, as the JAX package).  Otherwise
     ``<data_root>/<name>/HR`` with LR from ``LR_bicubic/X<scale>`` (same
     name or DIV2K's ``<stem>x<scale><ext>``), synthesized on host with
-    MATLAB bicubic where that folder or file is missing."""
+    MATLAB bicubic where that folder or file is missing; without ``HR``,
+    the images of ``<name>/LR`` (or ``LR_bicubic/X<scale>``) with no
+    ground truth (``hr`` None), as the JAX package."""
     name = dataset or opts.test_dataset
     scale = opts.scale
     if name.lower() == "synthetic":
@@ -331,16 +341,20 @@ def load_eval_set(opts, dataset: Optional[str] = None,
 
     hr_dir = os.path.join(opts.data_root, name, "HR")
     lr_dir = os.path.join(opts.data_root, name, "LR_bicubic", f"X{scale}")
+    lr_only = os.path.join(opts.data_root, name, "LR")
     if not os.path.isdir(hr_dir):
-        raise FileNotFoundError(
-            f"eval dataset {name!r} not found: expected {hr_dir} (with an "
-            f"optional {lr_dir}); or use --dataset synthetic")
-    files = sorted(f for f in os.listdir(hr_dir)
-                   if f.lower().endswith(_IMG_EXTS))
-    if not files:
-        raise FileNotFoundError(f"no images under {hr_dir}")
-    if max_images is not None:
-        files = files[:max_images]
+        # No ground truth (the PIRM-SR test set's layout): the images are
+        # the model's input as they are, and only PI can score them.
+        src = next((d for d in (lr_only, lr_dir) if os.path.isdir(d)), None)
+        if src is None:
+            raise FileNotFoundError(
+                f"eval dataset {name!r} not found: expected {hr_dir} (with "
+                f"an optional {lr_dir}), or LR only in {lr_only}; or use "
+                f"--dataset synthetic")
+        return [EvalSample(os.path.splitext(f)[0],
+                           imread_uint8(os.path.join(src, f)), None)
+                for f in _image_files(src, max_images)]
+    files = _image_files(hr_dir, max_images)
     samples = []
     for f in files:
         stem, ext = os.path.splitext(f)

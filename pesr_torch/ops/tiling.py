@@ -1,9 +1,9 @@
 """Tiled whole-image inference with overlap-stitch, on one device
-(counterpart of ``pesr_tpu/ops/tiling.py``: ``BatchTiledUpscaler``,
-``WholeImageUpscaler``, ``self_ensemble_upscale``, ``select_uint8_apply``,
-``required_min_halo``, ``_edge_pad_capped``).
+(counterpart of ``pesr_tpu/ops/tiling.py``: ``TiledUpscaler``,
+``BatchTiledUpscaler``, ``WholeImageUpscaler``, ``self_ensemble_upscale``,
+``select_uint8_apply``, ``required_min_halo``, ``_edge_pad_capped``).
 
-The engine:
+The batch engine (``BatchTiledUpscaler``, inference):
 
   * edge-replicate pads the LR batch to a fixed tile grid,
   * cuts tiles with a halo of ``overlap`` LR pixels on every side where
@@ -19,8 +19,13 @@ at least that much on every border, and ride its ``uint8_variant`` for
 uint8 output.  The x8 geometric self-ensemble averages the float outputs
 of the eight dihedral transforms and rounds once.
 
-Not ported (yet): the host-stitch ``TiledUpscaler`` and the
-multi-device mesh modes.
+``TiledUpscaler`` (the training self-validation's engine, as in the JAX
+package) cuts every image into fixed square tiles with ``overlap`` px of
+edge-replicated context on every border, image edges included, runs the
+tiles of all images in batches of a fixed size and stitches the cores on
+the host.
+
+Not ported (yet): the multi-device mesh modes.
 """
 
 from __future__ import annotations
@@ -363,3 +368,110 @@ class BatchTiledUpscaler:
             for k, i in enumerate(chunk):
                 results[i] = out[k]
         return results
+
+
+class TiledUpscaler:
+    """Fixed-shape tiled SR with a host stitch (the JAX package's
+    ``TiledUpscaler``, which its training self-validation runs).
+
+    Every image is edge-replicate padded by ``overlap`` LR px on every
+    border (an image that fits one tile included) and up to a multiple of
+    ``tile_size``, then cut into square tiles of ``tile_size + 2 *
+    overlap``.  The tiles of all images go through ``apply_fn`` in
+    batches of ``batch_size`` (the tail batch padded with copies of its
+    last tile), each tile's core is cropped on the device and copied to
+    the host, where the cores are stitched.  ``overlap`` is raised to the
+    apply's ``min_halo``, and the raised value drives both the cut and
+    the crop."""
+
+    def __init__(self, apply_fn: Callable, scale: int, tile_size: int = 96,
+                 overlap: int = 8, batch_size: int = 8,
+                 device="cuda") -> None:
+        if tile_size <= 0 or overlap < 0 or batch_size <= 0:
+            raise ValueError("tile_size and batch_size must be > 0 and "
+                             "overlap >= 0")
+        self.scale, self.tile, self.batch = scale, tile_size, batch_size
+        self.ov = max(overlap, required_min_halo(apply_fn))
+        self.device = resolve_device(device)
+        self._apply_fn = apply_fn
+
+    def update_apply(self, apply_fn: Callable) -> None:
+        """Swap the apply (new weights) without rebuilding the engine,
+        the counterpart of JAX's ``update_variables``.  Its ``min_halo``
+        must fit the overlap this engine cuts with."""
+        if required_min_halo(apply_fn) > self.ov:
+            raise ValueError(f"apply needs a halo of "
+                             f"{required_min_halo(apply_fn)} px, this engine "
+                             f"cuts {self.ov}")
+        self._apply_fn = apply_fn
+
+    def upscale(self, lr_u8: np.ndarray) -> np.ndarray:
+        """HWC uint8 LR -> HWC uint8 SR (H*scale, W*scale)."""
+        return self.upscale_many([lr_u8])[0]
+
+    def upscale_float(self, lr_u8: np.ndarray) -> np.ndarray:
+        """HWC uint8 LR -> unquantised float32 SR on the [0, 255] scale."""
+        return self.upscale_many([lr_u8], float_out=True)[0]
+
+    def upscale_many(self, imgs, float_out: bool = False) -> list:
+        """Upscale a list of HWC uint8 images, batching tiles ACROSS
+        images, so only the last batch of the list is padded."""
+        tiles, metas = [], []
+        for img in imgs:
+            cut, grid, hw = self._cut(img)
+            metas.append((len(tiles), len(cut), grid, hw))
+            tiles.extend(cut)
+        cores = self._run(tiles, float_out)
+        return [self._stitch(cores[o:o + n], grid, hw)
+                for o, n, grid, hw in metas]
+
+    def _cut(self, lr_u8: np.ndarray):
+        """The tiles of one image, views of its padded copy on the
+        device."""
+        x = _as_device_batch(lr_u8, self.device, 3)
+        h, w = x.shape[:2]
+        t, ov = self.tile, self.ov
+        nh, nw = math.ceil(h / t), math.ceil(w / t)
+        padded = _edge_pad_capped(x, (ov, nh * t - h + ov, ov, nw * t - w + ov),
+                                  0, 1)
+        tiles = [padded[i * t:(i + 1) * t + 2 * ov,
+                        j * t:(j + 1) * t + 2 * ov]
+                 for i in range(nh) for j in range(nw)]
+        return tiles, (nh, nw), (h, w)
+
+    @torch.no_grad()
+    def _forward(self, tiles_u8: torch.Tensor, float_out: bool
+                 ) -> torch.Tensor:
+        """uint8 tiles -> their cores: uint8, or float32 on the [0, 255]
+        scale with ``float_out``."""
+        fn, use_u8 = select_uint8_apply(self._apply_fn, float_out)
+        lo = self.ov * self.scale
+        hi = lo + self.tile * self.scale
+        core = fn(normalize_uint8(tiles_u8))[:, lo:hi, lo:hi]
+        if use_u8:
+            return core
+        return _to_255(core) if float_out else denormalize_to_uint8(core)
+
+    def _run(self, tiles, float_out: bool) -> np.ndarray:
+        n, b = len(tiles), self.batch
+        out = None
+        for start in range(0, n, b):
+            chunk = tiles[start:start + b]
+            k = len(chunk)
+            chunk = chunk + [chunk[-1]] * (b - k)  # the tail at full size
+            res = self._forward(torch.stack(chunk), float_out)[:k]
+            res = res.cpu().numpy()
+            if out is None:
+                out = np.empty((n,) + res.shape[1:], res.dtype)
+            out[start:start + k] = res
+        return out
+
+    def _stitch(self, cores: np.ndarray, grid, hw) -> np.ndarray:
+        nh, nw = grid
+        h, w = hw
+        ts = self.tile * self.scale
+        canvas = np.empty((nh * ts, nw * ts, 3), cores.dtype)
+        for k in range(nh * nw):
+            i, j = divmod(k, nw)
+            canvas[i * ts:(i + 1) * ts, j * ts:(j + 1) * ts] = cores[k]
+        return canvas[:h * self.scale, :w * self.scale]

@@ -1,18 +1,23 @@
-"""Training loop of both phases (counterpart of
-``pesr_tpu/training/loop.py``): ``pretrain`` (L1) and ``train`` (the GAN
+"""Training loop of the three phases (counterpart of
+``pesr_tpu/training/loop.py``): ``pretrain`` (L1), ``train`` (the GAN
 fine-tune: discriminator, VGG perceptual, TV and relativistic losses,
-usually from ``--pretrained_model``).
+usually from ``--pretrained_model``) and ``qat`` (the L1 step through the
+W8A8 fake-quant forward of ``models/qat.py``).
 
 Per epoch: ``steps_per_epoch`` steps (uint8 batch to the device, LR
-synthesis + dihedral augmentation there, one step of the phase through
-the kernels), then PSNR/SSIM self-validation on ``num_valids`` images of the
-validation set through the tiled engine (``BatchTiledUpscaler``, tile
-and overlap as the JAX package's training tiler) on a ``KernelApply``
-built from the current or EMA weights, JSONL/stdout scalars, and
-snapshots.  With ``--fold_train`` both the steps and the validation run
-through the folded upsampler (as the JAX loop evaluates its train
-apply); the engine pads and crops the fold's border band.  Ctrl-C saves
-a snapshot of the interrupted step before
+synthesis + dihedral augmentation there, one step of the phase), then
+self-validation on ``num_valids`` images of the validation set, tiled as
+the JAX package tiles it: its host-stitch ``TiledUpscaler`` (fixed
+96-px tiles, ``tile_overlap`` px of replicated context on every border,
+tiles of all images in batches of ``infer_batch``), kept across evals
+with the apply swapped.  The apply is a ``KernelApply`` of the current
+or EMA weights, through the folded upsampler with ``--fold_train`` (as
+the JAX loop evaluates its train apply), or in phase ``qat`` the same
+fake-quant forward the steps take, so ``val_psnr`` is the quantized
+quality.  Scores: Y-PSNR / SSIM against HR, and with ``--eval_pi`` the
+PIRM perceptual index of each SR output (float64 numpy on the host).
+Then JSONL/stdout scalars and snapshots; a new best PSNR writes
+``best/``.  Ctrl-C saves a snapshot of the interrupted step before
 exiting, so ``--resume`` continues from it.
 """
 
@@ -20,14 +25,15 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from pesr_torch.data import augment, datasets
-from pesr_torch.metrics import calc_psnr, calc_ssim
+from pesr_torch.metrics import calc_psnr, calc_ssim, perceptual_index
 from pesr_torch.models.kernel_apply import KernelApply
-from pesr_torch.ops.tiling import BatchTiledUpscaler
+from pesr_torch.models.qat import QatApply
+from pesr_torch.ops.tiling import TiledUpscaler
 from pesr_torch.training import checkpoint as ckpt
 from pesr_torch.training.state import (COMPUTE_DTYPES, add_discriminator,
                                        create_generator_state, init_vgg,
@@ -38,41 +44,82 @@ from pesr_torch.utils.logging import AverageMeter, MetricLogger
 
 
 class EvalSkip(ValueError):
-    """The validation set has no ground truth, so there is nothing to
-    evaluate (the perceptual index is not in the port yet)."""
+    """Nothing to evaluate: the validation set has no ground truth and
+    the perceptual index is off or could not be computed."""
 
 
-def evaluate(opts, apply_fn, samples=None) -> Dict[str, float]:
-    """Mean Y-PSNR / SSIM against HR (``val_psnr`` / ``val_ssim``) of the
-    SR outputs of ``apply_fn`` (a :class:`KernelApply`) on the validation
-    set, tiled as the JAX package's training self-validation tiles it.
-    Raises :class:`EvalSkip` when no sample has an HR image."""
+def evaluate(opts, apply_fn, samples=None,
+             tiler: Optional[TiledUpscaler] = None,
+             compute_pi: bool = True) -> Dict[str, float]:
+    """Self-validation of ``apply_fn`` (a :class:`KernelApply` or
+    :class:`QatApply`) on the validation set through the host-stitch
+    :class:`TiledUpscaler` (``tile_size``, ``tile_overlap`` and
+    ``infer_batch`` of ``opts``), scored by :func:`score_outputs`.  Pass
+    the ``tiler`` of an earlier eval to reuse it with ``apply_fn``
+    swapped in."""
     if samples is None:
         samples = datasets.load_eval_set(opts, opts.valid_dataset,
                                          opts.num_valids)
     if not samples:
         raise FileNotFoundError(
             f"validation set {opts.valid_dataset!r} is empty")
-    engine = BatchTiledUpscaler(apply_fn, opts.scale, opts.tile_size,
-                                opts.tile_overlap, device=opts.device)
-    srs = engine.upscale_many([s.lr for s in samples], opts.infer_batch)
-    psnr_m, ssim_m = AverageMeter(), AverageMeter()
+    if tiler is None:
+        tiler = make_eval_tiler(opts, apply_fn)
+    else:
+        tiler.update_apply(apply_fn)
+    srs = tiler.upscale_many([s.lr for s in samples])
+    return score_outputs(opts, samples, srs, compute_pi)
+
+
+def make_eval_tiler(opts, apply_fn) -> TiledUpscaler:
+    """The self-validation engine of ``opts`` around ``apply_fn``."""
+    return TiledUpscaler(apply_fn, opts.scale, opts.tile_size,
+                         opts.tile_overlap, opts.infer_batch,
+                         device=opts.device)
+
+
+def score_outputs(opts, samples, srs, compute_pi: bool = True
+                  ) -> Dict[str, float]:
+    """Mean Y-PSNR / SSIM against HR (``val_psnr`` / ``val_ssim``, when a
+    sample has HR) and mean perceptual index (``val_pi``, with
+    ``compute_pi``) of the SR outputs ``srs`` of ``samples``.  An image
+    whose PI cannot be computed (smaller than the 96-px NIQE block) is
+    left out of ``val_pi`` with one warning.  Raises :class:`EvalSkip`
+    when neither is there."""
+    psnr_m, ssim_m, pi_m = AverageMeter(), AverageMeter(), AverageMeter()
+    pi_err = None
     for s, sr in zip(samples, srs):
         if s.hr is not None:
             psnr_m.update(calc_psnr(sr, s.hr, crop_border=opts.scale))
             ssim_m.update(calc_ssim(sr, s.hr, crop_border=opts.scale))
-    if not psnr_m.count:
-        raise EvalSkip(f"validation set {opts.valid_dataset!r} has no "
-                       f"ground-truth HR images: nothing to evaluate")
-    return {"val_psnr": psnr_m.avg, "val_ssim": ssim_m.avg}
+        if compute_pi:
+            try:
+                pi_m.update(perceptual_index(sr))
+            except ValueError as e:
+                if pi_err is None:
+                    pi_err = str(e)
+                    print(f"[val] PI skipped for small image(s): {e}")
+    out: Dict[str, float] = {}
+    if psnr_m.count:
+        out["val_psnr"] = psnr_m.avg
+        out["val_ssim"] = ssim_m.avg
+    if pi_m.count:
+        out["val_pi"] = pi_m.avg
+    if not out:
+        raise EvalSkip(
+            f"validation set {opts.valid_dataset!r} has no ground-truth HR "
+            f"images and PI was "
+            + ("disabled" if not compute_pi else
+               f"not computable ({pi_err})") + ": nothing to evaluate")
+    return out
 
 
 def run_training(opts) -> Dict[str, float]:
     """Run the configured phase end to end; returns the summary (steps,
     wall time, last validation, forward counts of training and eval)."""
-    if opts.phase not in ("pretrain", "train"):
-        raise ValueError(f"phase {opts.phase!r} is not ported (the port has "
-                         f"'pretrain' and 'train'; 'qat' is still missing)")
+    if opts.phase not in ("pretrain", "train", "qat"):
+        raise ValueError(f"unknown phase {opts.phase!r} (the port has "
+                         f"'pretrain', 'train' and 'qat')")
     device = resolve_device(opts.device)
     opts = dataclasses.replace(opts, device=str(device))
     if opts.steps_per_epoch <= 0:
@@ -85,7 +132,13 @@ def run_training(opts) -> Dict[str, float]:
              else "cpu")
     print(f"device: {where}, phase={opts.phase}, compute "
           f"{opts.compute_dtype}")
-    if opts.fold_train:
+    if opts.phase == "qat":
+        print("generator apply: W8A8 fake-quant forward (QAT); its convs are "
+              "library convs (F.conv2d, cuDNN on the card), as JAX's QAT "
+              "runs lax.conv: no kernel launches"
+              + ("; --fold_train is ignored under QAT" if opts.fold_train
+                 else ""))
+    elif opts.fold_train:
         print("generator apply: folded upsampler (--fold_train)")
 
     state = create_generator_state(opts, device)
@@ -125,9 +178,6 @@ def run_training(opts) -> Dict[str, float]:
     print("LR source: pre-generated files (DIV2K bicubic track)"
           if lr_from_files else
           "LR source: synthesized on the device (MATLAB-bicubic)")
-    if opts.eval_every > 0:
-        print("[val] PSNR/SSIM only: the perceptual index (NIQE, Ma) is "
-              "not in the port yet")
 
     logger = MetricLogger(opts.check_point, name=opts.phase)
     box = {"best_psnr": best_psnr, "eval_forwards": 0,
@@ -241,8 +291,10 @@ def _train_epochs(opts, state, step_fn, aug, train_iter, logger, summary,
 
 def _validate(opts, state, logger, summary, box, extra) -> None:
     """Self-validation of the EMA weights when there are any (what the
-    best checkpoint and inference use), else of the live ones, folded
-    when the steps are; a new best PSNR writes ``best/``."""
+    best checkpoint and inference use), else of the live ones, through
+    the steps' forward (folded when they fold; fake-quant in QAT); the
+    engine is built once and kept in ``box``.  A new best PSNR writes
+    ``best/``."""
     if "eval_samples" not in box:
         try:
             box["eval_samples"] = datasets.load_eval_set(
@@ -250,11 +302,15 @@ def _validate(opts, state, logger, summary, box, extra) -> None:
         except FileNotFoundError as e:
             print(f"[val] skipped: {e}")
             return
-    apply_fn = KernelApply(
-        state.ema if state.ema is not None else state.generator,
-        COMPUTE_DTYPES[opts.compute_dtype], fold=opts.fold_train)
+    gen = state.ema if state.ema is not None else state.generator
+    dtype = COMPUTE_DTYPES[opts.compute_dtype]
+    apply_fn = (QatApply(gen, dtype) if opts.phase == "qat"
+                else KernelApply(gen, dtype, fold=opts.fold_train))
+    if "eval_tiler" not in box:
+        box["eval_tiler"] = make_eval_tiler(opts, apply_fn)
     try:
-        val = evaluate(opts, apply_fn, samples=box["eval_samples"])
+        val = evaluate(opts, apply_fn, samples=box["eval_samples"],
+                       tiler=box["eval_tiler"], compute_pi=opts.eval_pi)
     except EvalSkip as e:
         print(f"[val] skipped: {e}")
         return
@@ -262,9 +318,9 @@ def _validate(opts, state, logger, summary, box, extra) -> None:
         box["eval_forwards"] += apply_fn.forwards
     logger.log(state.step, val, prefix="val")
     summary.update(val)
-    if val["val_psnr"] > (box["best_psnr"] or -1.0):
-        box["best_psnr"] = val["val_psnr"]
-        path = ckpt.save_best_ckpt(opts.check_point, state,
-                                   val["val_psnr"], extra)
-        print(f"[ckpt] new best val_psnr={val['val_psnr']:.2f} -> {path}")
-        summary["best_psnr"] = val["val_psnr"]
+    val_psnr = val.get("val_psnr", float("-inf"))
+    if val_psnr > (box["best_psnr"] or -1.0):
+        box["best_psnr"] = val_psnr
+        path = ckpt.save_best_ckpt(opts.check_point, state, val_psnr, extra)
+        print(f"[ckpt] new best val_psnr={val_psnr:.2f} -> {path}")
+        summary["best_psnr"] = val_psnr

@@ -25,6 +25,7 @@ from pesr_torch.convert import load_vgg19_pth
 from pesr_torch.models.discriminator import Discriminator
 from pesr_torch.models.generator import Generator
 from pesr_torch.models.kernel_apply import KernelTrainApply
+from pesr_torch.models.qat import QatApply
 from pesr_torch.models.vgg import VGG19Features
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -45,7 +46,7 @@ def make_lr_schedule(opts) -> Callable[[int], float]:
 class TrainState:
     """What a train step updates in place.  ``apply`` is the forward the
     step differentiates (:class:`KernelTrainApply` on ``generator``,
-    folded or not);
+    folded or not, or the QAT phase's :class:`QatApply`);
     ``ema`` is a copy of the generator holding the parameter average
     when ``--ema_decay > 0``.  The GAN phase also sets
     ``discriminator`` and ``d_optimizer`` (:func:`add_discriminator`),
@@ -75,18 +76,20 @@ def create_generator_state(opts, device: torch.device,
                            generator: Optional[Generator] = None
                            ) -> TrainState:
     """A generator from ``opts`` (random init from ``opts.seed``, or the
-    given one), Adam over its parameters and the kernel-backed train
-    apply in ``opts.compute_dtype``, through the folded upsampler when
-    ``opts.fold_train`` (JAX's ``configure_generator_apply``; the
-    parameters and snapshots stay those of the plain generator)."""
+    given one), Adam over its parameters and the train apply in
+    ``opts.compute_dtype``: the kernel-backed one, through the folded
+    upsampler when ``opts.fold_train`` (JAX's
+    ``configure_generator_apply``), or in phase ``qat`` the fake-quant
+    forward, which ignores ``fold_train`` as JAX's does.  The parameters
+    and snapshots stay those of the plain generator."""
     if generator is None:
         generator = Generator(opts.scale, opts.num_blocks, opts.num_channels,
                               opts.res_scale, device=device, seed=opts.seed)
+    dtype = COMPUTE_DTYPES[opts.compute_dtype]
+    apply = (QatApply(generator, dtype) if opts.phase == "qat" else
+             KernelTrainApply(generator, dtype, fold=opts.fold_train))
     return TrainState(generator, _adam(generator, opts),
-                      make_lr_schedule(opts),
-                      KernelTrainApply(generator,
-                                       COMPUTE_DTYPES[opts.compute_dtype],
-                                       fold=opts.fold_train))
+                      make_lr_schedule(opts), apply)
 
 
 def _adam(module: torch.nn.Module, opts) -> torch.optim.Optimizer:

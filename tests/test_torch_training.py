@@ -336,8 +336,8 @@ def test_snapshot_is_read_by_pesr_tpu_convert(tmp_path):
 
 def test_evaluate_psnr_equals_jax(tmp_path):
     """Self-validation on 2 synthetic images (x2: LR 240 x 240, tile 96:
-    3 x 3 tiles in both engines) from the same f32 weights: JAX's
-    ``evaluate(..., compute_pi=False)`` against the port's."""
+    3 x 3 tiles each, 18 in batches of 8) from the same f32 weights:
+    JAX's ``evaluate(..., compute_pi=False)`` against the port's."""
     jopts = jax_config.Opts(**_ARCH, compute_dtype="float32",
                             valid_dataset="synthetic", num_valids=2)
     gen_j = jax_loop.build_generator(jopts)
@@ -349,8 +349,8 @@ def test_evaluate_psnr_equals_jax(tmp_path):
     popts = Opts(**_ARCH, valid_dataset="synthetic", num_valids=2,
                  device="cpu")
     apply_fn = KernelApply(gen, torch.float32)
-    got = loop.evaluate(popts, apply_fn)
-    assert apply_fn.forwards == 9      # 3 x 3 tile positions, batch 2
+    got = loop.evaluate(popts, apply_fn, compute_pi=False)
+    assert apply_fn.forwards == 3      # 2 x 9 tiles in batches of 8
     assert got["val_psnr"] == pytest.approx(want["val_psnr"], abs=1e-3)
     assert got["val_ssim"] == pytest.approx(want["val_ssim"], abs=1e-4)
 
@@ -369,8 +369,10 @@ def test_cli_trains_on_the_cpu_and_writes_snapshots(tmp_path, capsys):
     out = capsys.readouterr().out
     done = json.loads(out.strip().splitlines()[-1][len("[done] "):])
     assert done["steps"] == 20 and done["train_forwards"] == 20
-    assert done["eval_forwards"] == 8 and np.isfinite(done["val_psnr"])
-    assert "perceptual index" in out
+    # x4: 2 LR images of 120 x 120, 2 x 2 tiles each: one batch of 8 per
+    # eval
+    assert done["eval_forwards"] == 2 and np.isfinite(done["val_psnr"])
+    assert np.isfinite(done["val_pi"])
     recs = [r for r in _jsonl(os.path.join(ck, "pretrain.jsonl"))
             if "l1" in r]
     assert [r["step"] for r in recs] == [5, 10, 15, 20]
@@ -442,9 +444,9 @@ def test_cli_without_device_raises_when_cuda_is_missing(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--phase", "qat"], ["--quant", "int8"], ["--use_pallas"],
+    ["--param_dtype", "bfloat16"], ["--quant", "int8"], ["--use_pallas"],
     ["--remat"], ["--unroll_body"], ["--mesh_shape", "4"], ["--distributed"],
-    ["--profile_dir", "p"], ["--eval_pi"], ["--trim_host_heap"],
+    ["--profile_dir", "p"], ["--export_artifact", "a"], ["--trim_host_heap"],
     ["--compute_dtype", "float32"]])
 def test_train_cli_rejects_flags_the_port_lacks(flag):
     with pytest.raises(SystemExit):

@@ -90,6 +90,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               body conv, with planted faults that must fail its limits;
               ``run_training --phase qat`` (launches no kernel; steps/s,
               ``val_psnr`` of the fake-quant forward, ``val_pi``).
+8. quant    -- int8 W8A8 inference (``--quant int8``), whose int8 convs
+              are a library GEMM (``torch._int_mm`` over an int8 im2col),
+              as JAX's are ``lax.conv``: the int8 conv against its plain
+              float64 version bitwise (ragged shapes, chunked im2col, the
+              x4 body conv at the folded tile batch, the x8 int8 upfold),
+              timed with its bound and parts; one int8 block against the
+              bf16 ``fused_resblock``; the flagship int8 apply at x4 and
+              x8, ``_int_mm`` route against the plain route bitwise;
+              ``pesr_torch.test --quant int8`` on the train phase's
+              ``best/`` and the engine in turns with the bf16 folded path
+              (MP/s, agreement dB, uint8 against bf16, launches: none), a
+              planted scale fault the agreement must see; the guard's
+              fallback (``--quant_guard_db 200``: the bf16 kernel path)
+              and ``--compute_dtype float32`` (no kernel; within the
+              kernel path's uint8 limits).
 
 Prints a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or pesr_tpu.
@@ -97,6 +112,7 @@ Prints a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -2153,6 +2169,374 @@ def phase_qat(card: str, workdir: str) -> dict:
     return res
 
 
+# int8 phase.  The int8 conv's route (torch._int_mm over an int8 im2col)
+# must equal its plain float64 version bitwise; its bound counts int8
+# operations at the data sheet's dense int8 rate.
+PEAK_INT8_OPS = 1979e12
+# The int8 convs checked on the card, (b, h, w, c, n, k, pads): rows
+# <= 16 (zero-padded for _int_mm), K and N off a multiple of 8, odd
+# sizes, asymmetric pads; each also through im2col chunks of a few rows.
+INT8_RAGGED = ((1, 2, 3, 64, 64, 3, None), (1, 4, 4, 128, 128, 3, None),
+               (2, 19, 23, 256, 256, 3, None), (3, 5, 70, 64, 48, 5, (2, 2)),
+               (1, 9, 11, 256, 192, 9, (4, 4)), (2, 7, 13, 128, 27, 5, (1, 3)))
+# x8 flagship: two 255 x 170 LR images (DIV2K validation, x8) with the
+# fold's 4-px halo, through the int8 upfold (9 x 9 x 256 -> 192, pads 4):
+# its im2col (3.9 GB) runs in chunks, so a chunk boundary is on the card.
+X8_TILE_BATCH = (2, 178, 263)
+# A planted fault the agreement probe must see: block 0's and block 1's
+# conv2 dequant scales swapped.  On the H100 the train phase's best/
+# read 57.93 dB healthy and 54.23 with the swap.  Caught when the faulty
+# reading is at least QUANT_FAULT_MARGIN_DB below the healthy one.
+QUANT_FAULT_MARGIN_DB = 1.0
+
+
+def int8_conv_bound(m: int, kk: int, n: int, nbytes: float):
+    """The int8 conv's least time: ``2 m kk n`` int8 operations at
+    PEAK_INT8_OPS, or its bytes at PEAK_BYTES."""
+    t_ops, t_bytes = 2 * m * kk * n / PEAK_INT8_OPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_int8_conv(card, b, h, w, c, n, k, pads, seed, timing=False,
+                    max_bytes=None) -> dict:
+    """``int8_conv`` (the ``_int_mm`` route on the card) against
+    ``int8_conv_reference`` on the same random integers: equal int32
+    values or the phase fails; with ``max_bytes``, the im2col route in
+    chunks of at most that many bytes too.  ``timing``: times of the
+    route, the plain version and cuDNN bf16 on the same integers (a
+    yardstick: above 2^24 its f32 sums are not exact), and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from pesr_torch.ops.int8_conv import (int8_conv, int8_conv_im2col,
+                                          int8_conv_reference)
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(-127, 128, (b, h, w, c), generator=g,
+                      dtype=torch.int8).cuda()
+    wq = torch.randint(-127, 128, (n, k, k, c), generator=g,
+                       dtype=torch.int8).cuda()
+    ref = int8_conv_reference(x, wq, pads)
+    gemms = int8_conv_im2col.gemms
+    got = int8_conv(x, wq, pads)
+    gemms = int8_conv_im2col.gemms - gemms
+    name = f"int8_conv [{b},{h},{w},{c}] -> {n}, {k}x{k}, pads {pads}"
+    res = {"max_abs_err": float((got.long() - ref.long()).abs().max()),
+           "gemms": gemms}
+    if not torch.equal(got, ref):
+        fail(f"{name}: the _int_mm route differs from the plain version "
+             f"(max |d| {res['max_abs_err']})")
+    if max_bytes is not None:
+        before = int8_conv_im2col.gemms
+        if not torch.equal(int8_conv_im2col(x, wq, pads, max_bytes), ref):
+            fail(f"{name}: the im2col route in chunks of {max_bytes} bytes "
+                 f"differs from the plain version")
+        res["chunks"] = int8_conv_im2col.gemms - before
+    print(f"  {name}: _int_mm route ({gemms} GEMMs) == plain (int32, "
+          f"bitwise)"
+          + (f"; also in {res['chunks']} chunks of <= {max_bytes} B"
+             if max_bytes is not None else ""), flush=True)
+    if not timing:
+        return res
+    lo, hi = ((k - 1) // 2, k // 2) if pads is None else pads
+    ho, wo = h + lo + hi - k + 1, w + lo + hi - k + 1
+    m = b * ho * wo
+    res["time"] = timed_ms(lambda: int8_conv(x, wq, pads), 5)
+    res["plain"] = timed_ms(lambda: int8_conv_reference(x, wq, pads), 1, 3, 1)
+    xb = F.pad(x.permute(0, 3, 1, 2).bfloat16(), (lo, hi, lo, hi))
+    wb = wq.permute(0, 3, 1, 2).bfloat16()
+    res["library"] = timed_ms(lambda: F.conv2d(xb, wb), 5)
+    res["ms"], res["plain_ms"], res["library_ms"] = (
+        res[key]["ms"] for key in ("time", "plain", "library"))
+    res["bound_ms"], res["bound_by"] = int8_conv_bound(
+        m, k * k * c, n, x.numel() + wq.numel() + 4 * m * n)
+    print_time(name, res, card)
+    return res
+
+
+def _int8_conv_parts(card: str, b: int, h: int, w: int) -> dict:
+    """Where the x4 body conv's time goes: its im2col alone (the stack of
+    nine shifted slices, as the route copies them: 8 channels per int64
+    word; and byte by byte, the int8 stack it replaced), and
+    ``torch._int_mm`` alone with the weights column-major (the route's
+    layout) and row-major [K, N]."""
+    import torch
+    import torch.nn.functional as F
+    c = CHANNELS
+    x = torch.randint(-127, 128, (b, h, w, c), dtype=torch.int8,
+                      device="cuda")
+    wmat = torch.randint(-127, 128, (c, 9 * c), dtype=torch.int8,
+                         device="cuda")
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+
+    def im2col(t):
+        return torch.stack([t[:, dy:dy + h, dx:dx + w] for dy in range(3)
+                            for dx in range(3)], dim=3).view(
+                                torch.int8).reshape(-1, 9 * c)
+
+    col = im2col(xp.view(torch.int64))
+    if not torch.equal(col, im2col(xp)):
+        fail("the int64 im2col differs from the int8 one")
+    wt = wmat.t().contiguous()
+    res = {"im2col_int64": timed_ms(lambda: im2col(xp.view(torch.int64)), 5),
+           "im2col_int8": timed_ms(lambda: im2col(xp), 5),
+           "gemm_colmajor": timed_ms(lambda: torch._int_mm(col, wmat.t()), 5),
+           "gemm_rowmajor": timed_ms(lambda: torch._int_mm(col, wt), 5)}
+    print("  its parts: " + "  ".join(
+        f"{k} {v['ms']:.3f} ms [min {v['min']:.3f}, max {v['max']:.3f}]"
+        for k, v in res.items()) + f"  [{card}]", flush=True)
+    return res
+
+
+@contextlib.contextmanager
+def _plain_int8_route():
+    """``quant_apply``'s int8 conv set to its plain float64 version while
+    active (the ``_int_mm`` route otherwise)."""
+    from pesr_torch.models import quant_apply
+    from pesr_torch.ops.int8_conv import int8_conv_reference
+    real = quant_apply.int8_conv
+    quant_apply.int8_conv = int8_conv_reference
+    try:
+        yield
+    finally:
+        quant_apply.int8_conv = real
+
+
+def _quant_apply_bitwise(scale: int, seed: int) -> dict:
+    """The flagship int8 apply at ``scale`` (random seed weights,
+    calibrated on 4 synthetic 32-px crops) on a 40 x 40 LR tile: uint8
+    output of the _int_mm route == the plain route, bitwise."""
+    import numpy as np
+    import torch
+    from pesr_torch.data.datasets import SyntheticImages
+    from pesr_torch.data.augment import normalize_uint8
+    from pesr_torch.models.generator import Generator
+    from pesr_torch.models.quant_apply import default_calib_tiles, \
+        int8_inference
+    gen = Generator(scale, BLOCKS, CHANNELS, seed=seed)
+    img = SyntheticImages(1, 160, 160, seed=seed).get(0)
+    apply_fn = int8_inference(gen, default_calib_tiles([img], 32, 4))
+    x = normalize_uint8(torch.from_numpy(img[None, :40, :40].copy()).cuda())
+    ours = apply_fn.uint8_variant(x)
+    with _plain_int8_route():
+        ref = apply_fn.uint8_variant(x)
+    d = (ours.int() - ref.int()).abs()
+    res = {"upfold": "int8" if isinstance(apply_fn.upfold, dict) else "bf16",
+           "max_lsb": int(d.max()), "shape": tuple(ours.shape)}
+    print(f"  x{scale} {BLOCKS}x{CHANNELS} int8 apply (upfold {res['upfold']}"
+          f") on [1,40,40,3] -> {res['shape']}: _int_mm route vs plain "
+          f"route, uint8 max |d| {res['max_lsb']} (pass: 0)", flush=True)
+    if res["max_lsb"] != 0 or not torch.equal(ours, ref):
+        fail(f"the x{scale} int8 apply's _int_mm route differs from its "
+             f"plain route")
+    del gen, apply_fn
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_quant(card: str, best: str, workdir: str) -> dict:
+    """int8 W8A8 inference (``--quant int8``): the int8 conv against its
+    plain version and timed, one int8 block against the bf16 kernel, the
+    whole apply bitwise, the test CLI and the engine on ``best/`` (MP/s
+    in turns with the bf16 folded path, agreement, launches), the guard's
+    fallback, a planted scale fault, and ``--compute_dtype float32``."""
+    import numpy as np
+    import torch
+    from pesr_torch import test as cli
+    from pesr_torch.config import opts_from_args
+    from pesr_torch.data.datasets import (EvalSample, SyntheticImages,
+                                          host_bicubic_downsample)
+    from pesr_torch.models.kernel_apply import Float32Apply, KernelApply
+    from pesr_torch.models.quant_apply import (default_calib_tiles,
+                                               int8_agreement_db,
+                                               int8_inference)
+    from pesr_torch.ops import kernels
+    from pesr_torch.ops.int8_conv import int8_conv_im2col
+    from pesr_torch.ops.tiling import BatchTiledUpscaler
+    from pesr_torch.scales import fold_min_halo
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    print(f"[quant] int8 conv (_int_mm over an int8 im2col) vs its plain "
+          f"float64 version on {card}: ragged shapes", flush=True)
+    for i, case in enumerate(INT8_RAGGED):
+        check_int8_conv(card, *case, seed=40 + i, max_bytes=3000)
+    (b, th, tw), grid = main_path_tile_batch(fold_min_halo(SCALE))
+    print(f"[quant] the x{SCALE} body conv at the folded tile batch "
+          f"[{b},{th},{tw},{CHANNELS}] (grid {grid}) and the x8 int8 upfold "
+          f"at {list(X8_TILE_BATCH)}", flush=True)
+    res["conv"] = check_int8_conv(card, b, th, tw, CHANNELS, CHANNELS, 3,
+                                  None, seed=50, timing=True)
+    res["conv_parts"] = _int8_conv_parts(card, b, th, tw)
+    res["upfold_conv"] = check_int8_conv(card, *X8_TILE_BATCH, CHANNELS,
+                                         3 * 8 * 8, 9, (4, 4), seed=51,
+                                         timing=True)
+    torch.cuda.empty_cache()
+
+    print(f"[quant] one int8 residual block vs the bf16 fused_resblock at "
+          f"[{b},{th},{tw},{CHANNELS}]", flush=True)
+    res["resblock"] = check_resblock(b, th, tw, CHANNELS, 0.1, seed=52,
+                                     timing=True)
+    print_time(f"fused_resblock [{b},{th},{tw},{CHANNELS}]", res["resblock"],
+               card)
+    from pesr_torch.models.generator import Generator
+    gen = Generator(SCALE, BLOCKS, CHANNELS, seed=0)
+    img = SyntheticImages(1, LR_H * SCALE, LR_W * SCALE, seed=7).get(0)
+    int8 = int8_inference(gen, default_calib_tiles(
+        [host_bicubic_downsample(img, SCALE)]))
+    y = torch.randn((b, th, tw, CHANNELS), device="cuda").bfloat16()
+    res["block"] = timed_ms(lambda: int8.block(y, 0), 5)
+    m = b * th * tw
+    res["block_bound_ms"], res["block_bound_by"] = int8_conv_bound(
+        2 * m, 9 * CHANNELS, CHANNELS, 4 * m * CHANNELS
+        + 2 * 9 * CHANNELS * CHANNELS)
+    blk = res["block"]
+    print(f"  int8 block [{b},{th},{tw},{CHANNELS}]: {blk['ms']:.3f} ms [min "
+          f"{blk['min']:.3f}, max {blk['max']:.3f}], bound "
+          f"{res['block_bound_ms']:.3f} ms ({res['block_bound_by']}); bf16 "
+          f"fused_resblock {res['resblock']['ms']:.3f} ms [{card}]",
+          flush=True)
+    del y, int8, gen
+    torch.cuda.empty_cache()
+
+    print(f"[quant] whole {BLOCKS}x{CHANNELS} int8 apply, _int_mm route vs "
+          f"plain route", flush=True)
+    res["apply_x4"] = _quant_apply_bitwise(4, seed=0)
+    res["apply_x8"] = _quant_apply_bitwise(8, seed=1)
+    if res["apply_x8"]["upfold"] != "int8":
+        fail("the x8 int8 apply did not quantize its upfold")
+
+    src = SyntheticImages(N_IMAGES, LR_H * SCALE, LR_W * SCALE, seed=7)
+    hrs = [src.get(i) for i in range(N_IMAGES)]
+    lrs = [host_bicubic_downsample(hr, SCALE) for hr in hrs]
+    samples = [EvalSample(f"div2k_sized_{i}", lr, hr)
+               for i, (lr, hr) in enumerate(zip(lrs, hrs))]
+    base = ["--model_path", best, "--scale", str(SCALE), "--num_blocks",
+            str(BLOCKS), "--num_channels", str(CHANNELS), "--dataset",
+            "div2k_sized"]
+
+    def run_cli(extra, what):
+        real = cli.load_eval_set
+        cli.load_eval_set = lambda opts: samples
+        kernels.reset_launch_counts()
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                summary = cli.run(base + extra + ["--output_dir", tmp])
+                pngs = len(os.listdir(summary["out_dir"]))
+        finally:
+            cli.load_eval_set = real
+        counts = kernels.launch_counts()
+        print(f"  pesr_torch.test {' '.join(extra)}: {summary['precision']}, "
+              f"{summary['forwards']} forwards, launches {counts}, "
+              f"{summary['mp_per_s']:.2f} MP/s, PSNR {summary['psnr']:.2f} dB,"
+              f" {pngs} PNGs", flush=True)
+        if pngs != N_IMAGES or not np.isfinite(summary["psnr"]):
+            fail(f"pesr_torch.test {what}: {pngs} PNGs, {summary}")
+        return summary, counts
+
+    print(f"[quant] python -m pesr_torch.test --quant int8 on the train "
+          f"phase's best/ ({N_IMAGES} LR images {LR_H}x{LR_W})", flush=True)
+    summary, counts = run_cli(["--quant", "int8"], "--quant int8")
+    if summary["precision"] != "int8-w8a8" or any(counts.values()):
+        fail(f"--quant int8 served {summary['precision']} with launches "
+             f"{counts}")
+    res["cli_mp_per_s"] = summary["mp_per_s"]
+
+    opts = opts_from_args(base + ["--quant", "int8"])
+    gen = cli.build_generator(opts, torch.device("cuda"))
+    calib = default_calib_tiles(lrs)
+    int8 = int8_inference(gen, calib)
+    bf16 = KernelApply(gen, fold=True)
+    engines = {"int8": BatchTiledUpscaler(int8, SCALE, "auto", 8),
+               "bf16": BatchTiledUpscaler(bf16, SCALE, "auto", 8)}
+    for eng in engines.values():
+        eng.warmup_many(lrs, N_IMAGES)
+    kernels.reset_launch_counts()
+    fwd, gemms = int8.forwards, int8_conv_im2col.gemms
+    srs = {"int8": engines["int8"].upscale_many(lrs, N_IMAGES)}
+    fwd, gemms = int8.forwards - fwd, int8_conv_im2col.gemms - gemms
+    res["int8_launches"] = {k: v // max(fwd, 1) for k, v in
+                            kernels.launch_counts().items()}
+    print(f"  int8 engine: {fwd} forwards, hand-written kernel launches per "
+          f"forward {res['int8_launches']} (expected 0), _int_mm GEMMs per "
+          f"forward {gemms / max(fwd, 1):.0f}", flush=True)
+    if any(kernels.launch_counts().values()) or fwd < 1:
+        fail(f"the int8 engine launched {kernels.launch_counts()}")
+    srs["bf16"] = engines["bf16"].upscale_many(lrs, N_IMAGES)
+    mp = sum(sr.shape[0] * sr.shape[1] for sr in srs["int8"]) / 1e6
+    times = {"int8": [], "bf16": []}
+    for rep in range(4):
+        for name in (("int8", "bf16") if rep % 2 else ("bf16", "int8")):
+            t0 = time.perf_counter()
+            engines[name].upscale_many(lrs, N_IMAGES)
+            times[name].append(time.perf_counter() - t0)
+    res["mp_per_s"] = mp / min(times["int8"])
+    res["bf16_mp_per_s"] = mp / min(times["bf16"])
+    walls = {n: [round(t, 4) for t in ts] for n, ts in times.items()}
+    print(f"  {mp:.3f} MP per batch; best of 4 in turns: int8 "
+          f"{res['mp_per_s']:.2f} MP/s ({walls['int8']} s), bf16 folded "
+          f"{res['bf16_mp_per_s']:.2f} MP/s ({walls['bf16']} s) on {card}",
+          flush=True)
+    d = np.abs(np.stack(srs["int8"]).astype(np.int16)
+               - np.stack(srs["bf16"]).astype(np.int16))
+    res["lsb_max"], res["lsb_mean"] = float(d.max()), float(d.mean())
+    res["agreement_db"] = int8_agreement_db(int8, gen, calib, bf16)
+    print(f"  int8 vs bf16 folded, uint8 over both images: max "
+          f"{res['lsb_max']:.0f} LSB, mean {res['lsb_mean']:.4f} LSB; "
+          f"int8_agreement_db on the calibration tiles "
+          f"{res['agreement_db']:.2f} dB (JAX's guard floor: 55)", flush=True)
+    if not res["agreement_db"] > 30.0:
+        fail(f"int8 agreement {res['agreement_db']:.2f} dB: the int8 path "
+             f"is not the model")
+    res["profile"] = profile_breakdown(
+        lambda: engines["int8"].upscale_many(lrs, N_IMAGES), card, top=10)
+
+    faulty = int8_inference(gen, calib)
+    c2a, c2b = faulty.blocks[0][4], faulty.blocks[1][4]
+    c2a["m"], c2b["m"] = c2b["m"], c2a["m"]
+    res["fault_db"] = int8_agreement_db(faulty, gen, calib, bf16)
+    print(f"  planted fault (conv2 dequant scales of blocks 0 and 1 swapped):"
+          f" agreement {res['fault_db']:.2f} dB vs healthy "
+          f"{res['agreement_db']:.2f} (caught when >= "
+          f"{QUANT_FAULT_MARGIN_DB} dB lower)", flush=True)
+    if res["fault_db"] > res["agreement_db"] - QUANT_FAULT_MARGIN_DB:
+        fail("the agreement probe does not see a swapped scale vector")
+
+    f32 = Float32Apply(gen, fold=True)
+    srs32 = BatchTiledUpscaler(f32, SCALE, "auto", 8).upscale_many(
+        lrs, N_IMAGES)
+    d = np.abs(np.stack(srs32).astype(np.int16)
+               - np.stack(srs["bf16"]).astype(np.int16))
+    m8 = fold_min_halo(SCALE) * SCALE
+    res["f32_lsb_max"], res["f32_lsb_mean"] = float(d.max()), float(d.mean())
+    print(f"  float32 folded apply vs the bf16 kernel path (uint8): max "
+          f"{res['f32_lsb_max']:.0f} LSB, mean {res['f32_lsb_mean']:.4f} "
+          f"(tolerance: max <= {LSB_MAX_TOL}, mean <= {LSB_MEAN_TOL}; "
+          f"engine halo {m8} HR px)", flush=True)
+    if res["f32_lsb_max"] > LSB_MAX_TOL or res["f32_lsb_mean"] > LSB_MEAN_TOL:
+        fail("the float32 apply disagrees with the bf16 kernel path")
+    del engines, int8, bf16, faulty, f32, gen
+    torch.cuda.empty_cache()
+
+    print("[quant] the guard's fallback and --compute_dtype float32 through "
+          "the CLI", flush=True)
+    summary, counts = run_cli(["--quant", "int8", "--quant_guard_db", "200"],
+                              "--quant_guard_db 200")
+    rep = summary["quant_guard"]
+    if (summary["precision"] != "folded-bfloat16" or not rep["fallback"]
+            or counts["fused_resblock"] != BLOCKS * summary["forwards"]
+            or counts["fused_upsampler_stage"]):
+        fail(f"the guard's fallback served {summary['precision']} ({rep}) "
+             f"with launches {counts}")
+    res["guard_report"] = rep
+    summary, counts = run_cli(["--compute_dtype", "float32"],
+                              "--compute_dtype float32")
+    if summary["precision"] != "folded-float32" or any(counts.values()):
+        fail(f"--compute_dtype float32 served {summary['precision']} with "
+             f"launches {counts}")
+    res["f32_mp_per_s"] = summary["mp_per_s"]
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -2180,6 +2564,7 @@ def main() -> int:
         fold_res = phase_fold(card, main_res["mp_per_s"],
                               train_res["steps_per_s"], workdir)
         phase_qat(card, workdir)
+        quant_res = phase_quant(card, train_res["best"], workdir)
     sources = {"fused_resblock": ("pesr_torch/csrc/resblock.cu",
                                   "pesr_tpu/ops/pallas/resblock.py:96"),
                "fused_upsampler_stage": ("pesr_torch/csrc/upsampler.cu",
@@ -2209,8 +2594,15 @@ def main() -> int:
          **{f"eval_{k}": train_res["eval"][name][k]
             for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                       "library_ms")},
-         "eval_launches": train_res["eval"]["launches"][name]}
+         "eval_launches": train_res["eval"]["launches"][name],
+         "int8_launches": quant_res["int8_launches"][name]}
         for name, (src, rep) in sources.items()]}
+    conv = quant_res["conv"]
+    print(f"int8 conv (library route, torch._int_mm; not a kernel port): "
+          f"{conv['ms']:.3f} ms at the x4 body shape, bound "
+          f"{conv['bound_ms']:.3f} ms; x8 upfold "
+          f"{quant_res['upfold_conv']['ms']:.3f} ms, bound "
+          f"{quant_res['upfold_conv']['bound_ms']:.3f} ms", flush=True)
     print(json.dumps(line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,18 +3,21 @@
 
 Test mode has the single-device flow of the JAX ``test.py``: the folded
 upsampler (``--fold``, on by default; tiled modes only), the x8
-self-ensemble (``--self_ensemble``) and network interpolation
-(``--interp_model``, ``--interp_alpha``).  Train mode has the three
-phases of the JAX package, ``--phase pretrain``, ``--phase train`` (the
-GAN fine-tune, with JAX's loss flags, names and defaults) and ``--phase
-qat`` (L1 through the W8A8 fake-quant forward); ``--eval_pi`` (on by
-default: the PIRM perceptual index in every self-validation); and
-``--fold_train``, which the CLI turns on unless ``--no_fold_train`` is
-given, as JAX's resolver does (the dataclass default stays off; QAT
-ignores it).  On/off flags have their ``--no_`` twins.  Flags the port
-does not implement yet are not in the parsers, so argparse rejects them
-instead of ignoring them: in test mode ``--quant``, ``--mesh_shape``,
-``--export_artifact``, ...; in train mode ``--mesh_shape``,
+self-ensemble (``--self_ensemble``), network interpolation
+(``--interp_model``, ``--interp_alpha``), int8 W8A8 inference
+(``--quant int8``, with the quality guard ``--quant_guard_db``) and
+``--compute_dtype float32`` (plain f32 convs, no kernel; also the
+guard's fallback precision).  Train mode has the three phases of the JAX
+package, ``--phase pretrain``, ``--phase train`` (the GAN fine-tune, with
+JAX's loss flags, names and defaults) and ``--phase qat`` (L1 through the
+W8A8 fake-quant forward); ``--eval_pi`` (on by default: the PIRM
+perceptual index in every self-validation); and ``--fold_train``, which
+the CLI turns on unless ``--no_fold_train`` is given, as JAX's resolver
+does (the dataclass default stays off; QAT ignores it).  On/off flags
+have their ``--no_`` twins.  Flags the port does not implement yet are
+not in the parsers, so argparse rejects them instead of ignoring them: in
+test mode ``--param_dtype``, ``--mesh_shape``, ``--export_artifact``,
+...; in train mode ``--compute_dtype``, ``--mesh_shape``,
 ``--distributed``, ``--profile_dir``, ``--trim_host_heap``, ...  The port
 always runs its kernels (no ``--use_pallas``) and its recompute backward
 keeps only each block's input (no ``--remat``, no ``--unroll_body``), so
@@ -58,7 +61,8 @@ class Opts:
     seed: int = 0
     ema_decay: float = 0.0        # 0 = off
     grad_accum: int = 1           # microbatches per optimizer step
-    compute_dtype: str = "bfloat16"  # the kernels take bf16; f32 on the CPU
+    compute_dtype: str = "bfloat16"  # the kernels take bf16; float32:
+                                     # plain convs (test CLI) / the tests
     # GAN losses (phase "train")
     gan_type: str = "RSGAN"       # RSGAN | RaSGAN | RaLSGAN | LSGAN | GAN
     use_gp: bool = False          # gradient penalty on D (weight 10)
@@ -91,6 +95,9 @@ class Opts:
     self_ensemble: bool = False   # x8 geometric self-ensemble
     interp_model: str = ""        # network interpolation: second weights
     interp_alpha: float = 0.5     # (1 - a) * model_path + a * interp_model
+    quant: str = "none"           # none | int8 (W8A8 inference, folded)
+    quant_guard_db: float = 0.0   # > 0: int8-vs-bf16 agreement floor (dB)
+                                  # below which the guard falls back
     device: str = "cuda"
 
     @property
@@ -181,6 +188,21 @@ def build_parser(mode: str = "test") -> argparse.ArgumentParser:
         g.add_argument("--interp_alpha", type=float, default=d.interp_alpha,
                        help="blend factor a in [0, 1]: 0 = --model_path, "
                             "1 = --interp_model")
+        g.add_argument("--quant", default=d.quant, choices=["none", "int8"],
+                       help="post-training-quantized inference path (int8: "
+                            "W8A8 calibrated on the eval set's LR tiles, "
+                            "always on the folded upsampler)")
+        g.add_argument("--quant_guard_db", type=float,
+                       default=d.quant_guard_db,
+                       help="int8 quality guard: minimum int8-vs-bf16 "
+                            "output-agreement PSNR (dB) before falling back "
+                            "to the folded --compute_dtype path with a "
+                            "warning (0 = off; 55 = JAX's stress-calibrated "
+                            "floor)")
+        g.add_argument("--compute_dtype", default=d.compute_dtype,
+                       choices=["bfloat16", "float32"],
+                       help="bfloat16: the hand-written kernels; float32: "
+                            "plain PyTorch convs with TF32 off (no kernel)")
     else:
         g = p.add_argument_group("training")
         g.add_argument("--phase", default=d.phase,

@@ -19,6 +19,9 @@ accumulation in the kernels.
   Folded, it derives the composite once by impulse probing and carries
   ``min_halo`` (the fold's border band, which the engines pad and crop)
   and ``uint8_variant`` (quantised before the pixel shuffle).
+* :class:`Float32Apply` (``--compute_dtype float32``) is the same
+  forward in float32 on plain PyTorch convs with TF32 off: the kernels
+  take bf16 only, so it launches none.
 * :class:`KernelTrainApply` (training) reads the generator's live
   parameters on every call, casts them to ``dtype`` (gradients reach the
   f32 parameters through the cast, as JAX's ``w.astype(dtype)``) and
@@ -35,13 +38,13 @@ once per x2 stage (never, folded).
 
 from __future__ import annotations
 
-from typing import Callable, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from pesr_torch.data.augment import denormalize_to_uint8
-from pesr_torch.models.fold import (analytic_fold_upsampler, fold_upsampler,
-                                    folded_conv)
+from pesr_torch.models.fold import (Fold, analytic_fold_upsampler,
+                                    fold_upsampler, folded_conv)
 from pesr_torch.models.generator import Generator
 from pesr_torch.ops.kernels import (fused_resblock, fused_resblock_train,
                                     fused_upsampler_stage,
@@ -50,6 +53,7 @@ from pesr_torch.ops.kernels import (fused_resblock, fused_resblock_train,
 from pesr_torch.ops.kernels.common import conv3x3_nhwc
 from pesr_torch.ops.pixel_shuffle import pixel_shuffle
 from pesr_torch.scales import fold_min_halo, upsample_stages
+from pesr_torch.utils.device import full_f32
 
 Conv = Tuple[torch.Tensor, torch.Tensor]
 
@@ -90,11 +94,12 @@ def _upsample(y: torch.Tensor, stages: Sequence[tuple], stage_fn: Callable,
 class KernelApply:
     """``apply(x)`` interchangeable with ``Generator.forward``, on the
     weights packed at construction (inference: no autograd).  ``fold``:
-    the folded upsampler (``test.py --fold``) in place of the chain."""
+    the folded upsampler (``test.py --fold``) in place of the chain;
+    ``folded``: its ``fold_upsampler`` result when the caller has it."""
 
     def __init__(self, generator: Generator,
                  dtype: torch.dtype = torch.bfloat16,
-                 fold: bool = False) -> None:
+                 fold: bool = False, folded: Optional[Fold] = None) -> None:
         self.scale, self.res_scale = generator.scale, generator.res_scale
         self.num_blocks, self.dtype = generator.num_blocks, dtype
         self.forwards = 0
@@ -108,8 +113,8 @@ class KernelApply:
                                      dtype) for c1, c2 in blocks]
         self.min_halo, self.uint8_variant = 0, None
         if fold:
-            kernel, bias, self.pads = fold_upsampler(generator.state_dict(),
-                                                     self.scale)
+            kernel, bias, self.pads = folded or fold_upsampler(
+                generator.state_dict(), self.scale)
             self.fold = (kernel.to(dtype), bias.to(dtype))
             self.min_halo = fold_min_halo(self.scale)
             self.uint8_variant = self._uint8
@@ -147,6 +152,50 @@ class KernelApply:
         tensor moves 1-byte pixels."""
         y = folded_conv(self._trunk(x), *self.fold, self.pads)
         return pixel_shuffle(denormalize_to_uint8(y), self.scale)
+
+
+class Float32Apply:
+    """The forward of ``--compute_dtype float32`` (JAX's float32 paths):
+    the plain :class:`Generator` in f32, or with ``fold`` its trunk and
+    the folded conv in f32, all on plain PyTorch convs under
+    :func:`~pesr_torch.utils.device.full_f32` (TF32 off).  No
+    hand-written kernel runs: they take bf16 only.  Carries
+    ``forwards``, and ``min_halo`` / ``uint8_variant`` when folded, as
+    :class:`KernelApply`."""
+
+    def __init__(self, generator: Generator, fold: bool = False,
+                 folded: Optional[Fold] = None) -> None:
+        self.generator, self.scale = generator, generator.scale
+        self.forwards, self.fold = 0, None
+        self.min_halo, self.uint8_variant = 0, None
+        if fold:
+            kernel, bias, self.pads = folded or fold_upsampler(
+                generator.state_dict(), self.scale)
+            self.fold = (kernel.float(), bias.float())
+            self.min_halo = fold_min_halo(self.scale)
+            self.uint8_variant = self._uint8
+
+    def _folded(self, x: torch.Tensor) -> torch.Tensor:
+        """Trunk and folded conv, NHWC f32, before the pixel shuffle."""
+        g = self.generator
+        with full_f32(x.device):
+            h = g.head(x.permute(0, 3, 1, 2).float())
+            y = (g.body(h) + h).permute(0, 2, 3, 1)
+            return folded_conv(y, *self.fold, self.pads)
+
+    @torch.no_grad()
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        self.forwards += 1
+        if self.fold is None:
+            with full_f32(x.device):
+                return self.generator(x)
+        return pixel_shuffle(self._folded(x), self.scale)
+
+    @torch.no_grad()
+    def _uint8(self, x: torch.Tensor) -> torch.Tensor:
+        self.forwards += 1
+        return pixel_shuffle(denormalize_to_uint8(self._folded(x)),
+                             self.scale)
 
 
 class KernelTrainApply:

@@ -17,7 +17,14 @@ them (network interpolation).
 Tiled modes run the folded upsampler unless ``--no_fold`` is given;
 whole-image mode (``--tile_size 0``) keeps the chain, as the JAX
 ``test.py`` does.  ``--self_ensemble`` averages the x8 dihedral
-transforms in either engine.
+transforms in either engine.  ``--quant int8`` serves the W8A8 apply of
+``models/quant_apply.py``, calibrated on the eval set's LR tiles and
+always folded; ``--quant_guard_db N`` measures its agreement with the
+bf16 folded engine first and falls back to the folded ``--compute_dtype``
+path below N dB.  ``--compute_dtype float32`` runs plain f32 convs with
+TF32 off (no hand-written kernel).  The summary names the precision path
+that served, as JAX's label does (``int8-w8a8``, ``folded-bfloat16``,
+...).
 """
 
 from __future__ import annotations
@@ -33,10 +40,14 @@ from pesr_torch.convert import load_generator_pth, state_dict_from_torch
 from pesr_torch.data.datasets import host_bicubic_resize, load_eval_set
 from pesr_torch.metrics import calc_psnr, calc_ssim
 from pesr_torch.models.generator import Generator
-from pesr_torch.models.kernel_apply import KernelApply
+from pesr_torch.models.kernel_apply import Float32Apply, KernelApply
+from pesr_torch.models.quant_apply import (default_calib_tiles,
+                                           int8_inference,
+                                           int8_inference_guarded)
 from pesr_torch.ops.tiling import BatchTiledUpscaler, WholeImageUpscaler
 from pesr_torch.training.checkpoint import (interpolate_params,
                                              restore_generator_params)
+from pesr_torch.training.state import COMPUTE_DTYPES
 from pesr_torch.utils.device import resolve_device
 from pesr_torch.utils.image_io import imwrite_uint8
 from pesr_torch.utils.logging import AverageMeter
@@ -97,17 +108,54 @@ def build_generator(opts: Opts, device: torch.device) -> Generator:
     return gen
 
 
-def run(argv=None) -> dict:
-    """The whole flow of :func:`main`; returns its summary (mean PSNR /
-    SSIM / bicubic PSNR, MP/s, image and generator-forward counts)."""
-    opts = opts_from_args(argv)
-    device = resolve_device(opts.device)
+def build_apply(opts: Opts, gen: Generator, lrs) -> tuple:
+    """The apply that serves ``opts`` and its precision label (JAX's
+    ``test.py:102-160``, ``:218-221``): int8 (guarded or not), the plain
+    f32 forward, or the kernel path; folded in tiled modes unless
+    ``--no_fold``, always under int8 and its guard's fallback."""
     fold = opts.fold and opts.tile_size != 0
-    apply_fn = KernelApply(build_generator(opts, device), fold=fold)
+    if opts.quant == "int8":
+        # W8A8 with static per-channel scales, calibrated on the eval
+        # set's own LR tiles (no labels needed).
+        tiles = default_calib_tiles(lrs)
+        if opts.quant_guard_db <= 0:
+            print("using int8 W8A8 inference path (calibrated)")
+            return int8_inference(gen, tiles), "int8-w8a8", None
+        # Calibration and probe tiles coincide here (both from the eval
+        # set), so the guard catches pathological weights; a deployment
+        # calibrated offline probes with serving tiles to also catch
+        # calibration shift.
+        apply_fn, report = int8_inference_guarded(
+            gen, tiles, min_agreement_db=opts.quant_guard_db,
+            fallback_dtype=COMPUTE_DTYPES[opts.compute_dtype])
+        print(f"int8 quality guard: {report}")
+        if report["fallback"]:
+            print(f"using folded {opts.compute_dtype} path (quality-guard "
+                  f"fallback)")
+            return apply_fn, f"folded-{opts.compute_dtype}", report
+        print("using int8 W8A8 inference path (calibrated)")
+        return apply_fn, "int8-w8a8", report
+    label = ("folded-" if fold else "") + opts.compute_dtype
+    if opts.compute_dtype == "float32":
+        print("compute float32: plain PyTorch convs with TF32 off"
+              + (" and the folded upsampler" if fold else "")
+              + " (the hand-written kernels take bf16 only)")
+        return Float32Apply(gen, fold=fold), label, None
     if fold:
         print("using folded upsampler (--no_fold for the plain chain)")
+    return KernelApply(gen, fold=fold), label, None
+
+
+def run(argv=None) -> dict:
+    """The whole flow of :func:`main`; returns its summary (mean PSNR /
+    SSIM / bicubic PSNR, MP/s, image and generator-forward counts, the
+    precision path and the int8 guard's report)."""
+    opts = opts_from_args(argv)
+    device = resolve_device(opts.device)
+    gen = build_generator(opts, device)
     samples = load_eval_set(opts)
     lrs = [s.lr for s in samples]
+    apply_fn, precision, report = build_apply(opts, gen, lrs)
     se = opts.self_ensemble
     if opts.tile_size == 0:
         engine = WholeImageUpscaler(apply_fn, opts.scale, device)
@@ -155,13 +203,14 @@ def run(argv=None) -> dict:
     mp_s = total_mp / elapsed
     print(f"[{opts.test_dataset} x{opts.scale}] {quality}  ({mp_s:.2f} MP/s "
           f"on {where} over {len(samples)} images, post-warmup, incl. "
-          f"host transfers)")
+          f"host transfers; {precision})")
     print(f"SR images written to {out_dir}/")
     return {"psnr": psnr_m.avg if psnr_m.count else None,
             "ssim": ssim_m.avg if ssim_m.count else None,
             "bicubic_psnr": bicubic_m.avg if bicubic_m.count else None,
             "mp_per_s": mp_s, "images": len(samples),
-            "forwards": apply_fn.forwards, "out_dir": out_dir}
+            "forwards": apply_fn.forwards, "out_dir": out_dir,
+            "precision": precision, "quant_guard": report}
 
 
 def main(argv=None) -> int:

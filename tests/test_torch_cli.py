@@ -44,7 +44,8 @@ def test_cli_without_device_raises_when_cuda_is_missing(tmp_path):
         cli.main(_TINY + ["--output_dir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("flag", [["--quant", "int8"], ["--use_pallas"],
+@pytest.mark.parametrize("flag", [["--param_dtype", "float32"],
+                                  ["--use_pallas"],
                                   ["--mesh_axis", "tiles"],
                                   ["--mesh_shape", "4"],
                                   ["--export_artifact", "x"]])

@@ -106,6 +106,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               and ``--compute_dtype float32`` (no kernel; within the
               kernel path's uint8 limits).
 
+9. data     -- the train CLI's data sources and host-side options at
+              the flagship recipe (folded training, the CLI's default):
+              the ``synthetic_device`` renderer on the card at [16, 192,
+              192, 3] (uint8 covering 0..255, deterministic, sample i
+              fixed by its index, distinct samples, fresh content after
+              a resume's start_step, the band below the LR Nyquist; the
+              same parameters rendered on the CPU within 2 LSB), timed
+              against a pinned upload of the same bytes;
+              ``run_training`` on ``synthetic_device`` with
+              ``--profile_dir`` and ``--trim_host_heap`` (a trace of 5
+              steps with no host-to-device copy of 1 MB or more, 32 + 0
+              launches per forward, one trim per epoch), then steps/s in
+              turns with ``synthetic``; ``--compute_dtype float32`` (no
+              kernel launch, within the pretrain step's limits of the
+              bf16 kernel step, TF32 allowed outside the step) and
+              ``--param_dtype bfloat16`` (first L1 bitwise the
+              f32-parameter kernel step's on bf16-rounded weights, bf16
+              parameters and Adam moments); the native data core on a
+              DIV2K-layout PNG folder where libpng is installed (decode
+              bitwise, sampler batches/s against ``PatchIterator``,
+              ``run_training --train_dataset DIV2K`` on the native
+              sampler), and a line saying it did not run where it is
+              not.
+
 Prints a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or pesr_tpu.
 """
@@ -2537,6 +2561,448 @@ def phase_quant(card: str, best: str, workdir: str) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# data: the train CLI's data sources and host-side options
+# --------------------------------------------------------------------------
+
+DATA_SPE, DATA_EPOCHS, DATA_LOG_EVERY = 20, 2, 10
+# The traced steps of a synthetic_device run may hold no host-to-device
+# copy this large (a batch is 16 x 192^2 x 3 = 1,769,472 bytes; the
+# renderer's per-sample parameters are ~8 KB).
+H2D_LIMIT_BYTES = 1 << 20
+# The device renderer's properties (the JAX renderer's tests): on a 192^2
+# x4 render, the share of energy at or above the LR Nyquist (0.125
+# cycles/px) stays below ABOVE_MAX and the share in [f_lo, 0.125) above
+# BAND_MIN.
+ABOVE_MAX, BAND_MIN = 0.12, 0.15
+NATIVE_IMAGES, NATIVE_SPE, NATIVE_EPOCHS = 8, 10, 2
+
+
+class _Tee:
+    """stdout that is also kept, so a run's log lines can be checked."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def _run_logged(fn):
+    """``fn()`` with stdout teed; returns (result, printed text)."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        res = fn()
+    return res, tee.text()
+
+
+def _spectrum_shares(img, f_lo: float):
+    """(share at or above 0.125 cycles/px, share in [f_lo, 0.125)) of the
+    luma's power spectrum, mean removed."""
+    import numpy as np
+    g = img.mean(-1).astype(np.float64)
+    g -= g.mean()
+    power = np.abs(np.fft.rfft2(g)) ** 2
+    r = np.hypot(np.fft.fftfreq(g.shape[0])[:, None],
+                 np.fft.rfftfreq(g.shape[1])[None, :])
+    tot = power.sum()
+    return (float(power[r >= 0.125].sum() / tot),
+            float(power[(r >= f_lo) & (r < 0.125)].sum() / tot))
+
+
+def _device_renderer(card: str) -> dict:
+    """``synthetic_device``'s renderer at the flagship batch: its
+    properties, the card against the same render on the CPU (same
+    parameters), and its time against a pinned upload of the batch."""
+    import numpy as np
+    import torch
+    from pesr_torch.data import device_synth as ds
+    hp = TRAIN_PATCH * SCALE
+    shape = (TRAIN_BATCH, hp, hp, 3)
+    nbytes = math.prod(shape)
+    print(f"[data] synthetic_device renderer: [{TRAIN_BATCH},{hp},{hp},3] "
+          f"uint8 on {card}", flush=True)
+    hr = ds.render_hr_batch(0, TRAIN_BATCH, hp, SCALE, "cuda")
+    torch.cuda.synchronize()
+    h = hr.cpu().numpy()
+    res = {}
+    if hr.dtype != torch.uint8 or tuple(hr.shape) != shape \
+            or hr.device.type != "cuda":
+        fail(f"render: {hr.dtype} {tuple(hr.shape)} on {hr.device}")
+    lo = h.reshape(TRAIN_BATCH, -1).min(1)
+    hi = h.reshape(TRAIN_BATCH, -1).max(1)
+    if (lo != 0).any() or (hi != 255).any():
+        fail(f"render does not cover 0..255 per sample: {lo}, {hi}")
+    same = ds.render_hr_batch(0, TRAIN_BATCH, hp, SCALE, "cuda")
+    b2 = ds.render_hr_batch(0, 2, hp, SCALE, "cuda")
+    other = ds.render_hr_batch(1, TRAIN_BATCH, hp, SCALE, "cuda")
+    checks = {
+        "deterministic in the key": bool(torch.equal(same, hr)),
+        "sample i the same in a batch of 2 and of 16":
+            bool(torch.equal(b2, hr[:2])),
+        "samples within a batch differ":
+            len({h[i].tobytes() for i in range(TRAIN_BATCH)}) == TRAIN_BATCH,
+        "another key gives other content": not bool(torch.equal(other, hr)),
+    }
+    opts = _data_opts()
+    s0 = [next(ds.DeviceSyntheticStream(opts, "cuda"))[1] for _ in range(2)]
+    s100 = next(ds.DeviceSyntheticStream(opts, "cuda", start_step=100))[1]
+    checks["a stream is deterministic in (seed, step)"] = bool(
+        torch.equal(*s0))
+    checks["start_step folded in gives fresh content"] = not bool(
+        torch.equal(s0[0], s100))
+    f_lo, _ = ds.band_for_scale(SCALE)
+    shares = [_spectrum_shares(h[i], f_lo) for i in range(TRAIN_BATCH)]
+    res["above_max"] = max(a for a, _ in shares)
+    res["band_min"] = min(b for _, b in shares)
+    checks[f"energy >= 0.125 cyc/px < {ABOVE_MAX} on every sample"] = (
+        res["above_max"] < ABOVE_MAX)
+    checks[f"energy in [{f_lo:.4f}, 0.125) > {BAND_MIN} on every sample"] = (
+        res["band_min"] > BAND_MIN)
+    for what, ok in checks.items():
+        print(f"  {what}: {'yes' if ok else 'NO'}", flush=True)
+    print(f"  energy shares over the {TRAIN_BATCH} samples: above Nyquist "
+          f"max {res['above_max']:.4f}, in band min {res['band_min']:.4f}",
+          flush=True)
+    if not all(checks.values()):
+        fail("the device renderer lacks a stated property")
+    params = ds.draw_params(0, TRAIN_BATCH, hp, SCALE)
+    cpu = ds._render(params, hp, SCALE).numpy().astype(np.int16)
+    d = np.abs(cpu - h.astype(np.int16))
+    res["cpu_lsb_max"], res["cpu_lsb_mean"] = int(d.max()), float(d.mean())
+    print(f"  the same parameters rendered on the CPU: max "
+          f"{res['cpu_lsb_max']} LSB, mean {res['cpu_lsb_mean']:.5f} LSB "
+          f"(float32 exp/cos of two libraries)", flush=True)
+    if res["cpu_lsb_max"] > 2:
+        fail("the card's render differs from the CPU's by more than 2 LSB")
+    p_dev = params.cuda()
+    pinned = torch.empty(shape, dtype=torch.uint8).pin_memory()
+    res["render"] = timed_ms(
+        lambda: ds.render_hr_batch(0, TRAIN_BATCH, hp, SCALE, "cuda"), 10)
+    res["pixels"] = timed_ms(lambda: ds._render(p_dev, hp, SCALE), 10)
+    res["h2d"] = timed_ms(lambda: pinned.to("cuda", non_blocking=True), 10)
+    for name, what in (("render", "render_hr_batch (host parameters + "
+                        "device pixels)"),
+                       ("pixels", "the device pixels alone"),
+                       ("h2d", f"pinned H2D copy of the {nbytes:,} bytes")):
+        r = res[name]
+        print(f"  {what}: {r['ms']:.4f} ms [min {r['min']:.4f}, max "
+              f"{r['max']:.4f}] [{card}]", flush=True)
+    return res
+
+
+def _data_opts(extra=(), ck: str = "", dataset: str = "synthetic_device"):
+    """The train CLI's options at the flagship recipe (folded training,
+    its default) on ``dataset``, 2 epochs x 20 steps."""
+    from pesr_torch.config import opts_from_args
+    return opts_from_args(
+        ["--num_blocks", str(BLOCKS), "--num_channels", str(CHANNELS),
+         "--scale", str(SCALE), "--batch_size", str(TRAIN_BATCH),
+         "--patch_size", str(TRAIN_PATCH), "--train_dataset", dataset,
+         "--valid_dataset", dataset, "--num_valids", "1",
+         "--steps_per_epoch", str(DATA_SPE), "--num_epochs",
+         str(DATA_EPOCHS), "--log_every", str(DATA_LOG_EVERY),
+         "--check_point", ck, *extra], mode="train")
+
+
+def _traced_steps(trace: str):
+    """(``train_step`` ranges, bytes of every H2D copy) in a Chrome trace
+    of ``torch.profiler``."""
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    steps = sum(1 for e in events if e.get("name") == "train_step"
+                and e.get("cat") == "user_annotation")
+    h2d = [int(e.get("args", {}).get("bytes", 0)) for e in events
+           if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    return steps, h2d
+
+
+def _synthetic_device_run(card: str, workdir: str) -> dict:
+    """``run_training --train_dataset synthetic_device --valid_dataset
+    synthetic_device`` with ``--profile_dir`` and ``--trim_host_heap``:
+    the trace, no batch upload in it, launches, trims; then steps/s in
+    turns with ``synthetic`` on the same recipe."""
+    from pesr_torch.ops import kernels
+    from pesr_torch.training import loop
+    ck = os.path.join(workdir, "data_device")
+    pdir = os.path.join(workdir, "data_profile")
+    opts = _data_opts(["--profile_dir", pdir, "--trim_host_heap"], ck)
+    print(f"[data] run_training --train_dataset synthetic_device "
+          f"--valid_dataset synthetic_device --profile_dir --trim_host_heap: "
+          f"{BLOCKS}x{CHANNELS} x{SCALE}, batch {TRAIN_BATCH}, patch "
+          f"{TRAIN_PATCH}, {DATA_EPOCHS} x {DATA_SPE} steps, folded "
+          f"{opts.fold_train}", flush=True)
+    trims = []
+    real_trim = loop.trim_host_heap
+    loop.trim_host_heap = lambda: trims.append(real_trim()) or trims[-1]
+    kernels.reset_launch_counts()
+    try:
+        summary, out = _run_logged(lambda: loop.run_training(opts))
+    finally:
+        loop.trim_host_heap = real_trim
+    counts = kernels.launch_counts()
+    fwd = summary["train_forwards"] + summary["eval_forwards"]
+    want = {"fused_resblock": BLOCKS * fwd, "fused_upsampler_stage": 0}
+    res = {"launches": counts,
+           "launches_per_step": {k: v // fwd for k, v in counts.items()}}
+    traces = [f for f in os.listdir(pdir) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        fail(f"--profile_dir holds {traces}")
+    steps, h2d = _traced_steps(os.path.join(pdir, traces[0]))
+    big = [n for n in h2d if n >= H2D_LIMIT_BYTES]
+    res.update(traced_steps=steps, h2d_copies=len(h2d),
+               h2d_max_bytes=max(h2d, default=0), trims=trims)
+    print(f"  launches {counts} over {summary['train_forwards']} training + "
+          f"{summary['eval_forwards']} eval forwards (expected {want}); "
+          f"trace {traces[0]}: {steps} train_step ranges, {len(h2d)} H2D "
+          f"copies, the largest {res['h2d_max_bytes']} bytes (limit "
+          f"< {H2D_LIMIT_BYTES}); trim_host_heap ran {len(trims)} times "
+          f"({trims}); val_psnr {summary.get('val_psnr')}, val_pi "
+          f"{summary.get('val_pi')}", flush=True)
+    if counts != want or summary["train_forwards"] != DATA_SPE * DATA_EPOCHS:
+        fail(f"synthetic_device run_training: launches {counts} != {want}")
+    if "HR source: rendered on the device" not in out \
+            or "[profile] trace written to" not in out:
+        fail("synthetic_device run_training: the log does not name the "
+             "device source or the written trace")
+    if steps != len(loop.PROFILE_STEPS) or big:
+        fail(f"the trace covers {steps} steps, H2D copies >= 1 MB: {big}")
+    if trims != [True] * DATA_EPOCHS:
+        fail(f"--trim_host_heap: {trims}")
+    if not math.isfinite(summary.get("val_pi", math.nan)):
+        fail(f"synthetic_device eval: val_pi {summary.get('val_pi')}")
+
+    print("[data] steps/s in turns, same recipe, no eval: synthetic, "
+          "synthetic_device, synthetic_device, synthetic", flush=True)
+    rates = {"synthetic": [], "synthetic_device": []}
+    for i, name in enumerate(("synthetic", "synthetic_device",
+                              "synthetic_device", "synthetic")):
+        ck_i = os.path.join(workdir, f"data_turn_{i}")
+        o = _data_opts(["--eval_every", "0"], ck_i, name)
+        loop.run_training(o)
+        with open(os.path.join(ck_i, "pretrain.jsonl")) as f:
+            recs = [r for r in map(json.loads, f) if "l1" in r]
+        rates[name].append(steady_rate(recs, DATA_SPE, card))
+    res["steps_per_s"] = rates
+    print(f"  steps/s of the second epoch: synthetic {rates['synthetic']}, "
+          f"synthetic_device {rates['synthetic_device']} [{card}]",
+          flush=True)
+    return res
+
+
+def _precision_steps(card: str) -> dict:
+    """``--compute_dtype float32``: one flagship folded pretrain step on
+    plain convs (TF32 allowed globally: the step's scope must turn it off)
+    against the bf16 kernel step on the same weights and batch; no kernel
+    launch; its steps/s.  Then ``--param_dtype bfloat16`` from weights
+    rounded to bf16: its first L1 against the f32-parameter kernel step's,
+    and two steps' parameters and Adam moments."""
+    import torch
+    from pesr_torch.models.generator import Generator
+    from pesr_torch.models.kernel_apply import Float32TrainApply
+    from pesr_torch.ops import kernels
+    from pesr_torch.training.state import create_generator_state
+    from pesr_torch.training.steps import make_pretrain_step
+    cuda = torch.device("cuda")
+    opts = _data_opts()
+    torch.backends.cudnn.allow_tf32 = True   # PyTorch's default
+    batch = _train_batch(seed=5)
+    res = {}
+
+    def state_of(o, gen=None):
+        if gen is None:
+            gen = Generator(SCALE, BLOCKS, CHANNELS, seed=0)
+        return create_generator_state(o, cuda, gen)
+
+    o32 = dataclasses.replace(opts, compute_dtype="float32")
+    s32 = state_of(o32)
+    if not isinstance(s32.apply, Float32TrainApply):
+        fail(f"--compute_dtype float32 trains through {type(s32.apply)}")
+    step32 = make_pretrain_step(o32)
+    kernels.reset_launch_counts()
+    m32 = step32(s32, *batch)
+    torch.cuda.synchronize()
+    res["f32_launches"] = kernels.launch_counts()
+    sk = state_of(opts)
+    mk = make_pretrain_step(opts)(sk, *batch)
+    dl1 = abs(float(m32["l1"]) - float(mk["l1"]))
+    cos, name = min((float(torch.nn.functional.cosine_similarity(
+        p.grad.float().flatten(), q.grad.float().flatten(), dim=0)), n)
+        for (n, p), q in zip(s32.generator.named_parameters(),
+                             sk.generator.parameters()))
+    res.update(f32_dl1=dl1, f32_cos=cos)
+    print(f"[data] --compute_dtype float32, one folded flagship pretrain "
+          f"step: launches {res['f32_launches']} (expected none); L1 "
+          f"{float(m32['l1']):.6f} vs the bf16 kernel step's "
+          f"{float(mk['l1']):.6f}: |d L1| {dl1:.2e} (limit {STEP_L1_TOL}); "
+          f"least gradient cosine {cos:.6f} ({name}; floor "
+          f"{GRAD_COS_FLOOR})", flush=True)
+    if any(res["f32_launches"].values()):
+        fail(f"the float32 step launched {res['f32_launches']}")
+    if not (dl1 <= STEP_L1_TOL and cos >= GRAD_COS_FLOOR):
+        fail("the float32 step disagrees with the bf16 kernel step")
+    del sk
+    for _ in range(2):
+        step32(s32, *batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        step32(s32, *batch)
+    torch.cuda.synchronize()
+    res["f32_steps_per_s"] = 5 / (time.perf_counter() - t0)
+    print(f"  float32 steps/s (5 steps after 3, host clock around "
+          f"synchronize): {res['f32_steps_per_s']:.3f} [{card}]", flush=True)
+    del s32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+
+    gen = Generator(SCALE, BLOCKS, CHANNELS, seed=0)
+    with torch.no_grad():
+        for p in gen.parameters():
+            p.copy_(p.bfloat16().float())
+    gen16 = Generator(SCALE, BLOCKS, CHANNELS, seed=None)
+    gen16.load_state_dict(gen.state_dict())
+    o16 = dataclasses.replace(opts, param_dtype="bfloat16")
+    s_f = state_of(opts, gen)
+    s_b = state_of(o16, gen16)
+    step = make_pretrain_step(opts)
+    l1_f = float(step(s_f, *batch)["l1"])
+    kernels.reset_launch_counts()
+    l1_b = [float(step(s_b, *batch)["l1"]) for _ in range(2)]
+    res["bf16_param_launches_per_step"] = {
+        k: v // 2 for k, v in kernels.launch_counts().items()}
+    tensors = [("param " + n, p) for n, p in s_b.generator.named_parameters()]
+    for p in s_b.generator.parameters():
+        st = s_b.optimizer.state[p]
+        tensors += [("exp_avg", st["exp_avg"]),
+                    ("exp_avg_sq", st["exp_avg_sq"])]
+    bad = [n for n, t in tensors if t.dtype != torch.bfloat16
+           or not bool(torch.isfinite(t).all())]
+    res.update(bf16_l1_first=l1_b[0], f32_param_l1_first=l1_f,
+               bf16_bad=len(bad))
+    print(f"[data] --param_dtype bfloat16 from weights rounded to bf16: "
+          f"first L1 {l1_b[0]!r} vs the float32-parameter kernel step's "
+          f"{l1_f!r} ({'bitwise equal' if l1_b[0] == l1_f else 'DIFFER'});"
+          f" second L1 {l1_b[1]!r}; launches per step "
+          f"{res['bf16_param_launches_per_step']}; {len(tensors)} "
+          f"parameters and Adam moments, {len(bad)} not bf16 or not "
+          f"finite {bad[:4]}", flush=True)
+    if l1_b[0] != l1_f or bad:
+        fail("--param_dtype bfloat16: first-step L1 or dtypes")
+    if res["bf16_param_launches_per_step"] != {"fused_resblock": BLOCKS,
+                                               "fused_upsampler_stage": 0}:
+        fail(f"bf16 parameters: launches {kernels.launch_counts()}")
+    return res
+
+
+def _libpng_present():
+    """(png.h found, libpng's shared library found)."""
+    import ctypes.util
+    hdr = any(os.path.isfile(os.path.join(d, "png.h"))
+              for d in ("/usr/include", "/usr/local/include",
+                        "/usr/include/libpng", "/usr/include/libpng16"))
+    return hdr, ctypes.util.find_library("png") is not None
+
+
+def _native_path(card: str, workdir: str) -> dict:
+    """The native data core on a DIV2K-layout PNG folder: the library
+    built, 8 synthetic 480^2 images written with the port's PNG encoder
+    and read back bitwise by ``decode_png``, the sampler's batches/s
+    against ``PatchIterator``'s on the same images, and ``run_training
+    --train_dataset DIV2K`` (whose log must name the native sampler).
+    Runs only where libpng is installed; without it, says so and returns
+    ``{"run": False}``."""
+    import numpy as np
+    from pesr_torch.data import native
+    from pesr_torch.data.datasets import (PairedImageFolder, PatchIterator,
+                                          SyntheticImages)
+    from pesr_torch.training.loop import run_training
+    from pesr_torch.utils.image_io import imwrite_uint8
+    hdr, lib = _libpng_present()
+    print(f"[data] native data core: png.h {'found' if hdr else 'absent'}, "
+          f"libpng {'found' if lib else 'absent'}", flush=True)
+    if not (hdr and lib):
+        reason = native.unavailable_reason()
+        print(f"  NOT RUN: libpng is not installed on this machine, so "
+              f"pesr_torch/data/native cannot be built ({reason}); a PNG "
+              f"folder trains through PatchIterator and Pillow here, and "
+              f"the loop says so", flush=True)
+        return {"run": False, "reason": reason}
+    if not native.available():
+        fail(f"libpng is installed but the native library did not build: "
+             f"{native.unavailable_reason()}")
+    root = os.path.join(workdir, "native")
+    hr_dir = os.path.join(root, "DIV2K", "DIV2K_train_HR")
+    src = SyntheticImages(NATIVE_IMAGES, 480, 480, seed=21)
+    imgs = []
+    for i in range(NATIVE_IMAGES):
+        path = os.path.join(hr_dir, f"{i:04d}.png")
+        imwrite_uint8(path, src.get(i))
+        imgs.append(native.decode_png(path))
+        if not np.array_equal(imgs[-1], src.get(i)):
+            fail(f"decode_png does not read {path} back bitwise")
+    print(f"  {NATIVE_IMAGES} PNGs of 480^2 written by the port's encoder "
+          f"read back bitwise by decode_png ({native.lib_path()})",
+          flush=True)
+    hp, res = TRAIN_PATCH * SCALE, {"run": True}
+    sampler = native.NativePatchSampler(imgs, hp, TRAIN_BATCH, seed=0)
+    it = PatchIterator(PairedImageFolder(hr_dir, None, SCALE), TRAIN_PATCH,
+                       SCALE, TRAIN_BATCH, seed=0)
+    next(it)  # decodes and caches the folder
+    for name, fn in (("native", sampler.sample), ("patch_iterator",
+                                                   lambda: next(it))):
+        t0 = time.perf_counter()
+        for _ in range(50):
+            fn()
+        res[f"{name}_batches_per_s"] = 50 / (time.perf_counter() - t0)
+    print(f"  batches/s of [{TRAIN_BATCH},{hp},{hp},3] from {NATIVE_IMAGES} "
+          f"decoded images: native sampler ({sampler.threads} threads) "
+          f"{res['native_batches_per_s']:.1f}, PatchIterator "
+          f"{res['patch_iterator_batches_per_s']:.1f} [host of {card}]",
+          flush=True)
+    from pesr_torch.config import opts_from_args
+    opts = opts_from_args(
+        ["--num_blocks", str(BLOCKS), "--num_channels", str(CHANNELS),
+         "--scale", str(SCALE), "--batch_size", str(TRAIN_BATCH),
+         "--patch_size", str(TRAIN_PATCH), "--train_dataset", "DIV2K",
+         "--data_root", root, "--eval_every", "0", "--steps_per_epoch",
+         str(NATIVE_SPE), "--num_epochs", str(NATIVE_EPOCHS),
+         "--log_every", "5", "--check_point", os.path.join(root, "ck")],
+        mode="train")
+    summary, out = _run_logged(lambda: run_training(opts))
+    with open(os.path.join(root, "ck", "pretrain.jsonl")) as f:
+        l1s = [r["l1"] for r in map(json.loads, f) if "l1" in r]
+    print(f"  run_training --train_dataset DIV2K: {summary['steps']} steps, "
+          f"L1 {[round(v, 5) for v in l1s]}", flush=True)
+    if "HR source: native sampler" not in out:
+        fail("run_training on a PNG folder did not use the native sampler")
+    if summary["steps"] != NATIVE_SPE * NATIVE_EPOCHS \
+            or not all(map(math.isfinite, l1s)):
+        fail(f"run_training --train_dataset DIV2K: {summary}, {l1s}")
+    return res
+
+
+def phase_data(card: str, workdir: str) -> dict:
+    """The train CLI's data sources and host-side options at the flagship
+    recipe: the device renderer, a synthetic_device run with its trace,
+    ``--compute_dtype float32`` and ``--param_dtype bfloat16`` steps, and
+    the native data core."""
+    t0 = time.perf_counter()
+    res = {"render": _device_renderer(card)}
+    res["device_run"] = _synthetic_device_run(card, workdir)
+    res.update(_precision_steps(card))
+    res["native"] = _native_path(card, workdir)
+    print(f"[data] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -2565,6 +3031,7 @@ def main() -> int:
                               train_res["steps_per_s"], workdir)
         phase_qat(card, workdir)
         quant_res = phase_quant(card, train_res["best"], workdir)
+        data_res = phase_data(card, workdir)
     sources = {"fused_resblock": ("pesr_torch/csrc/resblock.cu",
                                   "pesr_tpu/ops/pallas/resblock.py:96"),
                "fused_upsampler_stage": ("pesr_torch/csrc/upsampler.cu",
@@ -2595,7 +3062,12 @@ def main() -> int:
             for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                       "library_ms")},
          "eval_launches": train_res["eval"]["launches"][name],
-         "int8_launches": quant_res["int8_launches"][name]}
+         "int8_launches": quant_res["int8_launches"][name],
+         "synthetic_device_launches_per_step":
+             data_res["device_run"]["launches_per_step"][name],
+         "f32_train_launches": data_res["f32_launches"][name],
+         "bf16_param_launches_per_step":
+             data_res["bf16_param_launches_per_step"][name]}
         for name, (src, rep) in sources.items()]}
     conv = quant_res["conv"]
     print(f"int8 conv (library route, torch._int_mm; not a kernel port): "

@@ -11,17 +11,22 @@ guard's fallback precision).  Train mode has the three phases of the JAX
 package, ``--phase pretrain``, ``--phase train`` (the GAN fine-tune, with
 JAX's loss flags, names and defaults) and ``--phase qat`` (L1 through the
 W8A8 fake-quant forward); ``--eval_pi`` (on by default: the PIRM
-perceptual index in every self-validation); and ``--fold_train``, which
+perceptual index in every self-validation); ``--fold_train``, which
 the CLI turns on unless ``--no_fold_train`` is given, as JAX's resolver
-does (the dataclass default stays off; QAT ignores it).  On/off flags
-have their ``--no_`` twins.  Flags the port does not implement yet are
-not in the parsers, so argparse rejects them instead of ignoring them: in
-test mode ``--param_dtype``, ``--mesh_shape``, ``--export_artifact``,
-...; in train mode ``--compute_dtype``, ``--mesh_shape``,
-``--distributed``, ``--profile_dir``, ``--trim_host_heap``, ...  The port
-always runs its kernels (no ``--use_pallas``) and its recompute backward
-keeps only each block's input (no ``--remat``, no ``--unroll_body``), so
-JAX's resolver never steps aside for those.
+does (the dataclass default stays off; QAT ignores it);
+``--compute_dtype`` (float32: plain convs with TF32 off on the card, no
+kernel), ``--param_dtype`` (bfloat16 parameters and Adam moments),
+``--profile_dir`` (a torch.profiler trace of steps 5-9) and
+``--trim_host_heap``.  Both CLIs read the datasets ``synthetic``,
+``synthetic_hard``, ``synthetic_hard_x4``, ``synthetic_device`` and
+``natural`` besides folders.  On/off flags have their ``--no_`` twins.
+Flags the port does not implement yet are not in the parsers, so argparse
+rejects them instead of ignoring them: in test mode ``--param_dtype``
+(JAX's ``test.py`` never reads it), ``--mesh_shape``, ``--mesh_axis``,
+``--export_artifact``; in train mode ``--mesh_shape``, ``--distributed``.
+The port always runs its kernels (no ``--use_pallas``) and its recompute
+backward keeps only each block's input (no ``--remat``, no
+``--unroll_body``), so JAX's resolver never steps aside for those.
 """
 
 from __future__ import annotations
@@ -62,7 +67,9 @@ class Opts:
     ema_decay: float = 0.0        # 0 = off
     grad_accum: int = 1           # microbatches per optimizer step
     compute_dtype: str = "bfloat16"  # the kernels take bf16; float32:
-                                     # plain convs (test CLI) / the tests
+                                     # plain convs, TF32 off, no kernel
+    param_dtype: str = "float32"     # training parameters (and Adam's
+                                     # moments): float32 | bfloat16
     # GAN losses (phase "train")
     gan_type: str = "RSGAN"       # RSGAN | RaSGAN | RaLSGAN | LSGAN | GAN
     use_gp: bool = False          # gradient penalty on D (weight 10)
@@ -85,6 +92,8 @@ class Opts:
     eval_every: int = 1           # epochs between self-validations (0 = off)
     eval_pi: bool = True          # PIRM PI (NIQE + Ma) in self-validation
     resume: bool = False
+    trim_host_heap: bool = False  # malloc_trim(0) at epoch boundaries
+    profile_dir: str = ""         # torch.profiler trace of steps 5-9
     # inference (the training self-validation tiles as the JAX one: 96)
     model_path: str = ""
     output_dir: str = "results"
@@ -103,6 +112,11 @@ class Opts:
     @property
     def hr_patch_size(self) -> int:
         return self.patch_size * self.scale
+
+
+_SETS = ("'synthetic', 'synthetic_hard', 'synthetic_hard_x4', "
+         "'synthetic_device' (rendered on the device), 'natural' "
+         "(photographs of installed packages)")
 
 
 def _tile_size(value: str):
@@ -147,14 +161,14 @@ def build_parser(mode: str = "test") -> argparse.ArgumentParser:
     if mode == "test":
         g.add_argument("--dataset", "--test_dataset", dest="test_dataset",
                        default=d.test_dataset,
-                       help="'synthetic' or a folder <data_root>/<name>/HR")
+                       help=f"{_SETS} or a folder <data_root>/<name>/HR")
     else:
         g.add_argument("--train_dataset", default=d.train_dataset,
-                       help="'synthetic', 'DIV2K' (<data_root>/DIV2K/"
+                       help=f"{_SETS}, 'DIV2K' (<data_root>/DIV2K/"
                             "DIV2K_train_HR) or a folder <data_root>/<name>")
         g.add_argument("--valid_dataset", default=d.valid_dataset,
-                       help="'synthetic' or an eval folder, as --dataset "
-                            "of pesr_torch.test")
+                       help=f"{_SETS} or an eval folder, as --dataset of "
+                            "pesr_torch.test")
         g.add_argument("--num_valids", type=int, default=d.num_valids)
         g.add_argument("--patch_size", type=int, default=d.patch_size,
                        help="LR patch side")
@@ -278,6 +292,21 @@ def build_parser(mode: str = "test") -> argparse.ArgumentParser:
         _add_bool_flag(g, "resume", d.resume,
                        "resume the networks' and optimizers' state from "
                        "the newest snapshot under --check_point")
+        _add_bool_flag(g, "trim_host_heap", d.trim_host_heap,
+                       "return freed host-heap arenas to the OS at epoch "
+                       "boundaries (glibc malloc_trim)")
+        g.add_argument("--profile_dir", default=d.profile_dir,
+                       help="write a torch.profiler Chrome trace of steps "
+                            "5-9 after the start here")
+        g = p.add_argument_group("precision")
+        g.add_argument("--compute_dtype", default=d.compute_dtype,
+                       choices=["bfloat16", "float32"],
+                       help="bfloat16: the hand-written kernels; float32: "
+                            "plain PyTorch convs with TF32 off (no kernel)")
+        g.add_argument("--param_dtype", default=d.param_dtype,
+                       choices=["float32", "bfloat16"],
+                       help="dtype of the generator's and discriminator's "
+                            "parameters and of their Adam moments")
     p.add_argument("--device", default=d.device,
                    help="cuda (default; raises without CUDA) or cpu")
     return p

@@ -24,11 +24,15 @@ accumulation in the kernels.
   take bf16 only, so it launches none.
 * :class:`KernelTrainApply` (training) reads the generator's live
   parameters on every call, casts them to ``dtype`` (gradients reach the
-  f32 parameters through the cast, as JAX's ``w.astype(dtype)``) and
-  runs the differentiable kernels, whose backward is recomputed through
-  the plain versions.  Folded (``--fold_train``), it composes the fold
-  analytically from the live upsampler and out weights on every call,
-  so the optimizer updates them through it; snapshots keep them.
+  parameters, f32 or bf16 by ``--param_dtype``, through the cast, as
+  JAX's ``w.astype(dtype)``) and runs the differentiable kernels, whose
+  backward is recomputed through the plain versions.  Folded
+  (``--fold_train``), it composes the fold analytically from the live
+  upsampler and out weights on every call, so the optimizer updates them
+  through it; snapshots keep them.
+* :class:`Float32TrainApply` (``--compute_dtype float32`` training on
+  the card) is that forward with the plain versions in f32, TF32 off:
+  no kernel launch.
 
 On a CPU device the kernel wrappers run their plain versions.  Both
 count their calls in ``forwards``, so a run can check that each forward
@@ -38,6 +42,7 @@ once per x2 stage (never, folded).
 
 from __future__ import annotations
 
+import copy
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -49,7 +54,9 @@ from pesr_torch.models.generator import Generator
 from pesr_torch.ops.kernels import (fused_resblock, fused_resblock_train,
                                     fused_upsampler_stage,
                                     fused_upsampler_stage_train,
-                                    pack_resblock, pack_upsampler_stage)
+                                    pack_resblock, pack_upsampler_stage,
+                                    resblock_reference,
+                                    upsampler_stage_reference)
 from pesr_torch.ops.kernels.common import conv3x3_nhwc
 from pesr_torch.ops.pixel_shuffle import pixel_shuffle
 from pesr_torch.scales import fold_min_halo, upsample_stages
@@ -165,6 +172,8 @@ class Float32Apply:
 
     def __init__(self, generator: Generator, fold: bool = False,
                  folded: Optional[Fold] = None) -> None:
+        if next(generator.parameters()).dtype != torch.float32:
+            generator = copy.deepcopy(generator).float()  # bf16 parameters
         self.generator, self.scale = generator, generator.scale
         self.forwards, self.fold = 0, None
         self.min_halo, self.uint8_variant = 0, None
@@ -210,6 +219,14 @@ class KernelTrainApply:
         self.min_halo = fold_min_halo(generator.scale) if fold else 0
         self.forwards = 0
 
+    def _block(self, y, w1, b1, w2, b2):
+        return fused_resblock_train(y, w1, b1, w2, b2,
+                                    res_scale=self.generator.res_scale)
+
+    @staticmethod
+    def _stage(y, w, b):
+        return fused_upsampler_stage_train(y, w, b)
+
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         g, dt = self.generator, self.dtype
 
@@ -217,17 +234,44 @@ class KernelTrainApply:
             return m.weight.to(dt), m.bias.to(dt)
 
         head, blocks, tail, stages, out = generator_convs(g)
-        rs = g.res_scale
         y = _trunk(x.to(dt), conv(head),
-                   [conv(c1) + conv(c2) for c1, c2 in blocks],
-                   lambda y, *p: fused_resblock_train(y, *p, res_scale=rs),
+                   [conv(c1) + conv(c2) for c1, c2 in blocks], self._block,
                    conv(tail))
         self.forwards += 1
         if not self.fold:
             return _upsample(y, [(f, conv(m)) for f, m in stages],
-                             fused_upsampler_stage_train, conv(out))
+                             self._stage, conv(out))
         kernel, bias, pads = analytic_fold_upsampler(
             [(m.weight, m.bias) for _, m in stages], (out.weight, out.bias),
             g.scale)
         return pixel_shuffle(folded_conv(y, kernel, bias, pads),
                              g.scale).float()
+
+
+class Float32TrainApply(KernelTrainApply):
+    """The train apply of ``--compute_dtype float32`` on a CUDA device
+    (the training counterpart of :class:`Float32Apply`): the same
+    forward as :class:`KernelTrainApply` (chain, or trunk plus the
+    analytic fold), with each residual block and x2 stage the plain
+    PyTorch version the kernels' backward differentiates, in float32 on
+    library convs under :func:`~pesr_torch.utils.device.full_f32` (TF32
+    off), so no hand-written kernel launches: they take bf16 only.  The
+    parameters are read in float32 whatever their dtype.  The step's
+    backward must run under ``full_f32`` too (``training/steps.py`` holds
+    both in it)."""
+
+    def __init__(self, generator: Generator, fold: bool = False) -> None:
+        super().__init__(generator, torch.float32, fold)
+
+    def _block(self, y, w1, b1, w2, b2):
+        return resblock_reference(y, w1.permute(2, 3, 1, 0), b1,
+                                  w2.permute(2, 3, 1, 0), b2,
+                                  self.generator.res_scale)
+
+    @staticmethod
+    def _stage(y, w, b):
+        return upsampler_stage_reference(y, w.permute(2, 3, 1, 0), b)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        with full_f32(x.device):
+            return super().__call__(x)

@@ -12,7 +12,9 @@ A snapshot is a directory, ``<check_point>/step_<K>/`` or
   state_dict in the SRGAN registration order (``pesr_tpu.convert.
   load_discriminator_weights`` reads it; ``--pretrained_d`` takes it);
 * ``train_state.pt`` -- the optimizer state (and the discriminator's),
-  the step, the best validation PSNR so far, the seed of the data stream,
+  the step, the best validation PSNR so far, the parameters' dtype
+  (``param_dtype``; loading into a model of the other dtype converts
+  the parameters and Adam's moments), the seed of the data stream,
   the state of the augmentation generator and, in the GAN phase, of the
   gradient penalty's generator.
 
@@ -63,6 +65,8 @@ def _save(path: str, state: TrainState, best_psnr: Optional[float],
     if state.ema is not None:
         torch.save(state.ema.state_dict(), os.path.join(tmp, EMA))
     ts = {"step": state.step, "best_psnr": best_psnr,
+          "param_dtype": str(next(state.generator.parameters()).dtype
+                             ).replace("torch.", ""),
           "optimizer": state.optimizer.state_dict(), **(extra or {})}
     if state.discriminator is not None:
         torch.save(state.discriminator.state_dict(),

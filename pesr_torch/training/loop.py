@@ -4,8 +4,9 @@ fine-tune: discriminator, VGG perceptual, TV and relativistic losses,
 usually from ``--pretrained_model``) and ``qat`` (the L1 step through the
 W8A8 fake-quant forward of ``models/qat.py``).
 
-Per epoch: ``steps_per_epoch`` steps (uint8 batch to the device, LR
-synthesis + dihedral augmentation there, one step of the phase), then
+Per epoch: ``steps_per_epoch`` steps (uint8 batch to the device, unless
+``synthetic_device`` rendered it there; LR synthesis + dihedral
+augmentation there, one step of the phase), then
 self-validation on ``num_valids`` images of the validation set, tiled as
 the JAX package tiles it: its host-stitch ``TiledUpscaler`` (fixed
 96-px tiles, ``tile_overlap`` px of replicated context on every border,
@@ -17,13 +18,19 @@ fake-quant forward the steps take, so ``val_psnr`` is the quantized
 quality.  Scores: Y-PSNR / SSIM against HR, and with ``--eval_pi`` the
 PIRM perceptual index of each SR output (float64 numpy on the host).
 Then JSONL/stdout scalars and snapshots; a new best PSNR writes
-``best/``.  Ctrl-C saves a snapshot of the interrupted step before
-exiting, so ``--resume`` continues from it.
+``best/``, and with ``--trim_host_heap`` freed host heap goes back to the
+OS.  ``--profile_dir`` traces steps 5-9 after the start with
+``torch.profiler`` (CPU and CUDA activities, each step a ``train_step``
+range) into a Chrome trace ``*.pt.trace.json``; the trace is closed and
+written on every exit path.  Ctrl-C saves a snapshot of the interrupted
+step before exiting, so ``--resume`` continues from it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 from typing import Dict, Optional
 
@@ -31,16 +38,20 @@ import torch
 
 from pesr_torch.data import augment, datasets
 from pesr_torch.metrics import calc_psnr, calc_ssim, perceptual_index
-from pesr_torch.models.kernel_apply import KernelApply
+from pesr_torch.models.kernel_apply import (Float32Apply, Float32TrainApply,
+                                            KernelApply)
 from pesr_torch.models.qat import QatApply
 from pesr_torch.ops.tiling import TiledUpscaler
 from pesr_torch.training import checkpoint as ckpt
 from pesr_torch.training.state import (COMPUTE_DTYPES, add_discriminator,
                                        create_generator_state, init_vgg,
-                                       make_ema)
+                                       make_ema, plain_float32)
 from pesr_torch.training.steps import make_gan_step, make_pretrain_step
 from pesr_torch.utils.device import host_to_device, resolve_device
 from pesr_torch.utils.logging import AverageMeter, MetricLogger
+from pesr_torch.utils.memory import trim_host_heap
+
+PROFILE_STEPS = range(5, 10)  # steps after the start that --profile_dir traces
 
 
 class EvalSkip(ValueError):
@@ -131,12 +142,18 @@ def run_training(opts) -> Dict[str, float]:
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
     print(f"device: {where}, phase={opts.phase}, compute "
-          f"{opts.compute_dtype}")
+          f"{opts.compute_dtype}, parameters {opts.param_dtype}")
     if opts.phase == "qat":
         print("generator apply: W8A8 fake-quant forward (QAT); its convs are "
               "library convs (F.conv2d, cuDNN on the card), as JAX's QAT "
               "runs lax.conv: no kernel launches"
               + ("; --fold_train is ignored under QAT" if opts.fold_train
+                 else ""))
+    elif plain_float32(opts, device):
+        print("generator apply: plain float32 forward on library convs with "
+              "TF32 off (--compute_dtype float32): no kernel launches; D "
+              "and VGG in float32"
+              + (", folded upsampler (--fold_train)" if opts.fold_train
                  else ""))
     elif opts.fold_train:
         print("generator apply: folded upsampler (--fold_train)")
@@ -147,7 +164,8 @@ def run_training(opts) -> Dict[str, float]:
         ckpt.validate_params_compat(state.generator.state_dict(), sd)
         state.generator.load_state_dict(sd)
         print(f"loaded pretrained generator (step {at_step}) from "
-              f"{opts.pretrained_model}")
+              f"{opts.pretrained_model}"
+              + _converted(str(next(iter(sd.values())).dtype), opts))
     if opts.ema_decay > 0.0:
         state.ema = make_ema(state.generator)
     if opts.phase == "train":
@@ -169,7 +187,8 @@ def run_training(opts) -> Dict[str, float]:
             print("[gan] checkpoint has no discriminator: D keeps its "
                   "initialisation")
         print(f"resumed from {opts.check_point} at step {state.step}"
-              + (f" (best_psnr {best_psnr:.2f})" if best_psnr else ""))
+              + (f" (best_psnr {best_psnr:.2f})" if best_psnr else "")
+              + _converted(ts.get("param_dtype", "float32"), opts))
     if state.ema is not None:
         print(f"EMA of generator params enabled (decay {opts.ema_decay})")
     start_step = state.step
@@ -180,7 +199,7 @@ def run_training(opts) -> Dict[str, float]:
           "LR source: synthesized on the device (MATLAB-bicubic)")
 
     logger = MetricLogger(opts.check_point, name=opts.phase)
-    box = {"best_psnr": best_psnr, "eval_forwards": 0,
+    box = {"best_psnr": best_psnr, "eval_forwards": 0, "profiler": None,
            "extra": {"data_seed": opts.seed, "data_start_step": start_step}}
     summary: Dict[str, float] = {}
     t_start = time.time()
@@ -195,6 +214,8 @@ def run_training(opts) -> Dict[str, float]:
               f"--resume --check_point {opts.check_point}")
         raise
     finally:
+        _stop_profile(opts, box, device, "run interrupted inside the "
+                      "profile window")
         train_iter.close()
         logger.close()
     summary["steps"] = state.step
@@ -202,6 +223,14 @@ def run_training(opts) -> Dict[str, float]:
     summary["train_forwards"] = state.apply.forwards
     summary["eval_forwards"] = box["eval_forwards"]
     return summary
+
+
+def _converted(saved: str, opts) -> str:
+    """The note a load prints when the checkpoint's parameter dtype is
+    not ``--param_dtype`` (``load_state_dict`` converts them)."""
+    saved = saved.replace("torch.", "")
+    return ("" if saved == opts.param_dtype else
+            f"; its {saved} parameters converted to {opts.param_dtype}")
 
 
 def _gan_setup(opts, state, device):
@@ -256,22 +285,26 @@ def _train_epochs(opts, state, step_fn, aug, train_iter, logger, summary,
         logger.log(state.step, avg, prefix=opts.phase)
         pending.clear()
 
+    start_step = state.step
     start_epoch = state.step // max(opts.steps_per_epoch, 1)
     for epoch in range(start_epoch, opts.num_epochs):
         while state.step < (epoch + 1) * opts.steps_per_epoch:
-            lr_u8, hr_u8 = next(train_iter)
-            hr_u8 = host_to_device(torch.from_numpy(hr_u8), device)
-            if lr_u8 is not None:
-                lr_u8 = host_to_device(torch.from_numpy(lr_u8), device)
-            bits = augment.dihedral_bits(aug, hr_u8.shape[0], device)
-            lr_img, hr_img = augment.prepare_train_batch(
-                bits, hr_u8, opts.scale, lr_u8)
-            metrics = step_fn(state, lr_img, hr_img)
+            k = state.step - start_step
+            if opts.profile_dir and k == PROFILE_STEPS[0]:
+                box["profiler"] = _start_profile(device)
+            with (torch.profiler.record_function("train_step")
+                  if box["profiler"] else contextlib.nullcontext()):
+                metrics = _one_step(opts, state, step_fn, aug, train_iter,
+                                    device)
+            if k == PROFILE_STEPS[-1]:
+                _stop_profile(opts, box, device)
             if opts.log_every > 0:
                 pending.append(metrics)
                 if state.step % opts.log_every == 0:
                     flush()
         flush()
+        if opts.trim_host_heap:
+            trim_host_heap()
         extra = dict(box["extra"], augment=aug.get_state())
         if opts.eval_every > 0 and (epoch + 1) % opts.eval_every == 0:
             _validate(opts, state, logger, summary, box, extra)
@@ -287,6 +320,49 @@ def _train_epochs(opts, state, step_fn, aug, train_iter, logger, summary,
                 print(f"[ckpt] pruned {len(pruned)} old snapshot(s) "
                       f"(keep_snapshots={opts.keep_snapshots})")
         t_window = time.time()
+    _stop_profile(opts, box, device, "run ended before the full profile "
+                  "window")
+
+
+def _one_step(opts, state, step_fn, aug, train_iter, device):
+    """Next batch (a host batch goes to the device; a device batch, as
+    ``synthetic_device`` renders it, is taken as it is), LR synthesis and
+    augmentation on the device, one step."""
+    lr_u8, hr_u8 = next(train_iter)
+    if not torch.is_tensor(hr_u8):
+        hr_u8 = host_to_device(torch.from_numpy(hr_u8), device)
+    if lr_u8 is not None and not torch.is_tensor(lr_u8):
+        lr_u8 = host_to_device(torch.from_numpy(lr_u8), device)
+    bits = augment.dihedral_bits(aug, hr_u8.shape[0], device)
+    lr_img, hr_img = augment.prepare_train_batch(bits, hr_u8, opts.scale,
+                                                 lr_u8)
+    return step_fn(state, lr_img, hr_img)
+
+
+def _start_profile(device: torch.device) -> torch.profiler.profile:
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(opts, box, device: torch.device, why: str = "") -> None:
+    """Stop an open ``--profile_dir`` trace (after the device has caught
+    up) and write it as ``steps_<a>-<b>.pt.trace.json``."""
+    prof = box.get("profiler")
+    if prof is None:
+        return
+    box["profiler"] = None
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(opts.profile_dir, exist_ok=True)
+    path = os.path.join(opts.profile_dir, f"steps_{PROFILE_STEPS[0]}-"
+                        f"{PROFILE_STEPS[-1]}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    print(f"[profile] trace written to {path}" + (f" ({why})" if why else ""))
 
 
 def _validate(opts, state, logger, summary, box, extra) -> None:
@@ -304,8 +380,12 @@ def _validate(opts, state, logger, summary, box, extra) -> None:
             return
     gen = state.ema if state.ema is not None else state.generator
     dtype = COMPUTE_DTYPES[opts.compute_dtype]
-    apply_fn = (QatApply(gen, dtype) if opts.phase == "qat"
-                else KernelApply(gen, dtype, fold=opts.fold_train))
+    if opts.phase == "qat":
+        apply_fn = QatApply(gen, dtype)
+    elif isinstance(state.apply, Float32TrainApply):
+        apply_fn = Float32Apply(gen, fold=opts.fold_train)
+    else:
+        apply_fn = KernelApply(gen, dtype, fold=opts.fold_train)
     if "eval_tiler" not in box:
         box["eval_tiler"] = make_eval_tiler(opts, apply_fn)
     try:

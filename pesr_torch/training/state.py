@@ -24,11 +24,20 @@ import torch
 from pesr_torch.convert import load_vgg19_pth
 from pesr_torch.models.discriminator import Discriminator
 from pesr_torch.models.generator import Generator
-from pesr_torch.models.kernel_apply import KernelTrainApply
+from pesr_torch.models.kernel_apply import Float32TrainApply, KernelTrainApply
 from pesr_torch.models.qat import QatApply
 from pesr_torch.models.vgg import VGG19Features
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+PARAM_DTYPES = COMPUTE_DTYPES
+
+
+def plain_float32(opts, device: torch.device) -> bool:
+    """True where ``--compute_dtype float32`` runs on plain PyTorch convs
+    instead of the kernels: on a CUDA device (the kernels take bf16
+    only).  On the CPU the kernel wrappers run those plain versions
+    anyway."""
+    return opts.compute_dtype == "float32" and device.type == "cuda"
 
 
 def make_lr_schedule(opts) -> Callable[[int], float]:
@@ -76,18 +85,26 @@ def create_generator_state(opts, device: torch.device,
                            generator: Optional[Generator] = None
                            ) -> TrainState:
     """A generator from ``opts`` (random init from ``opts.seed``, or the
-    given one), Adam over its parameters and the train apply in
+    given one) with its parameters in ``opts.param_dtype`` (JAX's
+    ``param_dtype``: bf16 parameters give Adam bf16 moments, as optax's
+    ``zeros_like``), Adam over them and the train apply in
     ``opts.compute_dtype``: the kernel-backed one, through the folded
     upsampler when ``opts.fold_train`` (JAX's
-    ``configure_generator_apply``), or in phase ``qat`` the fake-quant
-    forward, which ignores ``fold_train`` as JAX's does.  The parameters
-    and snapshots stay those of the plain generator."""
+    ``configure_generator_apply``), or :class:`Float32TrainApply` for
+    float32 on the card (:func:`plain_float32`), or in phase ``qat`` the
+    fake-quant forward, which ignores ``fold_train`` as JAX's does.  The
+    parameters and snapshots stay those of the plain generator."""
     if generator is None:
         generator = Generator(opts.scale, opts.num_blocks, opts.num_channels,
                               opts.res_scale, device=device, seed=opts.seed)
+    generator.to(PARAM_DTYPES[opts.param_dtype])
     dtype = COMPUTE_DTYPES[opts.compute_dtype]
-    apply = (QatApply(generator, dtype) if opts.phase == "qat" else
-             KernelTrainApply(generator, dtype, fold=opts.fold_train))
+    if opts.phase == "qat":
+        apply = QatApply(generator, dtype)
+    elif plain_float32(opts, device):
+        apply = Float32TrainApply(generator, fold=opts.fold_train)
+    else:
+        apply = KernelTrainApply(generator, dtype, fold=opts.fold_train)
     return TrainState(generator, _adam(generator, opts),
                       make_lr_schedule(opts), apply)
 
@@ -101,14 +118,15 @@ def add_discriminator(state: TrainState, opts, device: torch.device,
                       discriminator: Optional[Discriminator] = None) -> None:
     """Give ``state`` the GAN phase's discriminator (random init from
     ``opts.seed + 1``, or the given one; SRGAN widths, dense 1024, sized
-    for ``opts.hr_patch_size``, computing in ``opts.compute_dtype``) with
-    its Adam, and the penalty's generator on ``device`` (seeded with
-    ``opts.seed + 3``)."""
+    for ``opts.hr_patch_size``, computing in ``opts.compute_dtype``, its
+    parameters in ``opts.param_dtype``) with its Adam, and the penalty's
+    generator on ``device`` (seeded with ``opts.seed + 3``)."""
     if discriminator is None:
         discriminator = Discriminator(
             opts.hr_patch_size, spectral_norm=opts.spectral_norm,
             dtype=COMPUTE_DTYPES[opts.compute_dtype], device=device,
             seed=opts.seed + 1)
+    discriminator.to(PARAM_DTYPES[opts.param_dtype])
     state.discriminator = discriminator
     state.d_optimizer = _adam(discriminator, opts)
     state.gp_rng = torch.Generator(device=device).manual_seed(opts.seed + 3)

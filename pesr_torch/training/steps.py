@@ -17,12 +17,14 @@ so a step does not wait for the device.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
 from pesr_torch import losses
 from pesr_torch.training.state import TrainState
+from pesr_torch.utils.device import full_f32
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -67,6 +69,14 @@ def _accumulate(loss_fn: Callable, split_xs: Sequence[List[torch.Tensor]],
     return [t / accum for t in total]
 
 
+def _precision(opts, x: torch.Tensor):
+    """The step's numerics scope: float32 steps run forward and backward
+    with TF32 off on the card (:func:`full_f32`), so cuDNN's backward
+    convs keep the f32 they compute in."""
+    return (full_f32(x.device) if opts.compute_dtype == "float32"
+            else contextlib.nullcontext())
+
+
 def make_pretrain_step(opts) -> Callable[[TrainState, torch.Tensor,
                                           torch.Tensor], Metrics]:
     """``step(state, lr_img, hr_img) -> {"l1", "psnr"}``: one L1 pretrain
@@ -83,10 +93,11 @@ def make_pretrain_step(opts) -> Callable[[TrainState, torch.Tensor,
     def step(state: TrainState, lr_img: torch.Tensor,
              hr_img: torch.Tensor) -> Metrics:
         state.optimizer.zero_grad(set_to_none=True)
-        l1, mse = _accumulate(
-            lambda lr_mb, hr_mb: loss_fn(state, lr_mb, hr_mb),
-            (_microbatches(lr_img, accum), _microbatches(hr_img, accum)),
-            accum)
+        with _precision(opts, hr_img):
+            l1, mse = _accumulate(
+                lambda lr_mb, hr_mb: loss_fn(state, lr_mb, hr_mb),
+                (_microbatches(lr_img, accum), _microbatches(hr_img, accum)),
+                accum)
         _set_lr(state.optimizer, state.lr_at(state.step))
         state.optimizer.step()
         state.step += 1
@@ -158,6 +169,10 @@ def make_gan_step(opts) -> Callable[..., Metrics]:
 
     def step(state: TrainState, lr_img: torch.Tensor, hr_img: torch.Tensor,
              eps: Optional[torch.Tensor] = None) -> Metrics:
+        with _precision(opts, hr_img):
+            return _step(state, lr_img, hr_img, eps)
+
+    def _step(state, lr_img, hr_img, eps):
         d = state.discriminator
         lr = state.lr_at(state.step)
         state.optimizer.zero_grad(set_to_none=True)

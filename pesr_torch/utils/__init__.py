@@ -1,1 +1,2 @@
-"""Small host utilities: device selection, PNG writing, running means."""
+"""Small host utilities: device selection, PNG writing, running means,
+host-heap trimming."""

@@ -95,7 +95,10 @@ def test_port_imports_nothing_of_jax_or_pesr_tpu():
             "pesr_torch/training/checkpoint.py",
             "pesr_torch/models/discriminator.py",
             "pesr_torch/models/vgg.py", "pesr_torch/convert.py",
-            "pesr_torch/models/fold.py"} <= scanned
+            "pesr_torch/models/fold.py", "pesr_torch/data/natural.py",
+            "pesr_torch/data/device_synth.py",
+            "pesr_torch/data/native/__init__.py",
+            "pesr_torch/utils/memory.py"} <= scanned
     bad = [(os.path.relpath(f, _REPO), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                   "pesr_tpu")]

@@ -444,10 +444,8 @@ def test_cli_without_device_raises_when_cuda_is_missing(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--param_dtype", "bfloat16"], ["--quant", "int8"], ["--use_pallas"],
-    ["--remat"], ["--unroll_body"], ["--mesh_shape", "4"], ["--distributed"],
-    ["--profile_dir", "p"], ["--export_artifact", "a"], ["--trim_host_heap"],
-    ["--compute_dtype", "float32"]])
+    ["--quant", "int8"], ["--use_pallas"], ["--remat"], ["--unroll_body"],
+    ["--mesh_shape", "4"], ["--distributed"], ["--export_artifact", "a"]])
 def test_train_cli_rejects_flags_the_port_lacks(flag):
     with pytest.raises(SystemExit):
         opts_from_args(_TINY_CLI + flag, mode="train")
@@ -457,10 +455,15 @@ def test_train_cli_rejects_flags_the_port_lacks(flag):
     (["--phase", "train"], "phase"), (["--gan_type", "RaSGAN"], "gan_type"),
     (["--alpha_vgg", "1"], "alpha_vgg"), (["--GP"], "use_gp"),
     (["--vgg_weights", "v.pth"], "vgg_weights"),
-    (["--pretrained_d", "d"], "pretrained_d")])
+    (["--pretrained_d", "d"], "pretrained_d"),
+    (["--param_dtype", "bfloat16"], "param_dtype"),
+    (["--profile_dir", "p"], "profile_dir"),
+    (["--trim_host_heap"], "trim_host_heap"),
+    (["--compute_dtype", "float32"], "compute_dtype")])
 def test_train_cli_parses_the_gan_flags_as_jax_does(flag, field):
-    """The GAN phase's flags, once rejected, now parse into the field the
-    JAX package's parser sets, with its value."""
+    """The GAN phase's flags and the host-side and precision flags, once
+    rejected, now parse into the field the JAX package's parser sets,
+    with its value."""
     ours = opts_from_args(_TINY_CLI + flag, mode="train")
     want = getattr(jax_config.opts_from_args(flag, mode="train"), field)
     assert getattr(ours, field) == want != getattr(Opts(), field)

@@ -129,6 +129,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               ``run_training --train_dataset DIV2K`` on the native
               sampler), and a line saying it did not run where it is
               not.
+10. parallel -- multi-process runs on the one card: two gloo ranks (NCCL
+              refuses two ranks on one device) over CUDA tensors, so no
+              number of it is a speed-up.  Flagship pretrain (folded)
+              and GAN (chain, JAX's defaults) steps, global batch 16 as
+              2 x 8 against 1 x 16 on the same batches, each step from
+              one state, under the step limits, with a second
+              one-process run beside and a planted fault (D's
+              statistics over the block) that must fail them; launches
+              per rank per step; NCCL at world size 1 through
+              ``python -m pesr_torch.train --distributed`` (L1 bitwise
+              the run without a process group); the folded engine with
+              ``mesh_axis`` tiles and batch on the two 336 x 510 images
+              against the single-process engine (bitwise), launches and
+              MP/s per rank.
+11. serve    -- the serving artifact of the folded flagship engine at
+              [2, 336, 510]: exported, loaded in a fresh process that
+              imports only ``pesr_torch.serving`` (bitwise the live
+              engine; the resblock op's launches inside the program),
+              MP/s in turns with the live engine, a ``batch="any"``
+              artifact on a batch of 1 and an int8 artifact, each
+              bitwise its live engine.
 
 Prints a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or pesr_tpu.
@@ -2013,9 +2034,10 @@ QAT_FAULTS = ("the STE detached from the activations (no gradient to x)",
 QAT_SPE, QAT_EPOCHS, QAT_LOG_EVERY = 20, 2, 10
 
 
-def _per_tensor_fake_quant_conv(x, weight, bias, dtype):
+def _per_tensor_fake_quant_conv(x, weight, bias, dtype, mesh=None):
     """``qat.fake_quant_conv`` with one weight scale for the whole
-    kernel: the planted fault of QAT_FAULTS[1]."""
+    kernel: the planted fault of QAT_FAULTS[1] (one process: ``mesh``
+    is None)."""
     import torch
     import torch.nn.functional as F
     from pesr_torch.models import qat
@@ -2041,8 +2063,8 @@ class _QatFault:
         from pesr_torch.models import qat
         self.orig = orig = qat.fake_quant_conv
         if self.fault == QAT_FAULTS[0]:
-            qat.fake_quant_conv = (lambda x, w, b, dtype: orig(
-                x.detach(), w, b, dtype))
+            qat.fake_quant_conv = (lambda x, w, b, dtype, mesh=None: orig(
+                x.detach(), w, b, dtype, mesh))
         else:
             qat.fake_quant_conv = _per_tensor_fake_quant_conv
         return self
@@ -3003,6 +3025,585 @@ def phase_data(card: str, workdir: str) -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# parallel: two gloo ranks on one card; serve: the serving artifact
+# --------------------------------------------------------------------------
+
+# Global batch 16 on 2 ranks x 8 against 1 process x 16: the same kernels,
+# so both sides hold bf16 noise only; the limits are the pretrain and GAN
+# step limits above (PERF.md section 2).  Each step is compared from the
+# same state: before step k > 1 the one-process run takes the 2-rank run's
+# parameters and optimizer states after step k - 1.  Run on, the GAN's
+# two trajectories part after one step: D's and VGG's bf16 convs round
+# differently at batch 8 and 16 (cuDNN picks by shape), and Adam turns
+# small gradient differences into parameter steps of ~lr (measured on
+# the H100: |d d_loss| 1.4e-4 at step 1, 1.6e-2 at step 2 run on; a
+# second one-process run is bitwise the first).  D's cosine leaves out
+# PAR_ZERO_GRAD_D, the tensors whose exact gradient is 0 (the gan phase
+# leaves out the same ones as rounding noise against its f32 step; here
+# both sides are bf16, their noise passes that norm filter and its cosine
+# between the two runs is meaningless: 0.92 on conv0s.bias).
+PAR_RANKS, PAR_STEPS = 2, 2
+PAR_FAULT = "D's batch statistics over the rank's block (no all-reduce)"
+
+
+def par_zero_grad_d(d) -> list:
+    """D's parameters whose exact gradient is 0: the bias of every conv
+    a batch-statistics norm follows (the norm subtracts the channel's
+    mean, so a constant shift cancels), and ``fc1.bias``, which shifts
+    every logit alike (the relativistic losses see logits only as
+    differences)."""
+    from pesr_torch.models.discriminator import BatchStatNorm
+    mods = dict(d.named_children())
+    names = list(mods)
+    return [f"{a}.bias" for a, b in zip(names, names[1:])
+            if isinstance(mods[b], BatchStatNorm)] + ["fc1.bias"]
+
+
+def _rank_argv(call: str) -> list:
+    """The command of a rank process running ``chip_smoke.<call>``."""
+    return [sys.executable, "-c", f"import chip_smoke as c; c.{call}"]
+
+
+def _run_ranks(argv: list, n: int = PAR_RANKS,
+               timeout: float = 400.0) -> list:
+    """``argv`` as ``n`` processes under the ``PESR_*`` contract (a free
+    localhost port), from this script's directory; their output is
+    printed with a rank prefix.  Kills every one still running after
+    ``timeout`` s; fails unless all exit 0."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    for r in range(n):
+        e = dict(os.environ, PESR_COORDINATOR=f"127.0.0.1:{port}",
+                 PESR_NUM_PROCESSES=str(n), PESR_PROCESS_ID=str(r))
+        procs.append(subprocess.Popen(
+            argv, cwd=root, env=e, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    deadline = time.monotonic() + timeout
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        fail(f"{argv[-1]}: the {n} ranks did not finish within {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.rstrip().splitlines():
+            print(f"  [rank {r}] {line}", flush=True)
+        if p.returncode != 0:
+            fail(f"{argv[-1]}: rank {r} exited {p.returncode}")
+    return outs
+
+
+def _rank_mesh():
+    """In a rank process: the gloo group (NCCL refuses two ranks on one
+    device) over CUDA tensors on this card."""
+    from pesr_torch import parallel
+    parallel.initialize_distributed(required=True, device="cuda",
+                                    backend="gloo", timeout_s=120)
+    return parallel.make_mesh(device="cuda")
+
+
+def _par_case(case: str, mesh, fault=False, starts=None, seed=0,
+              steps=PAR_STEPS) -> dict:
+    """``steps`` flagship steps of ``case`` ("pretrain": folded L1;
+    "gan": the chain, JAX's GAN defaults) from weights of ``seed`` (G;
+    D ``seed + 1``) on the global batches of :func:`_train_batch` (seed
+    ``100 * seed + k`` at step k), this rank's block of each (``mesh``
+    None: one process, the whole batch; ``fault``: D's batch statistics
+    over the block).  ``starts``: a 2-rank run's states, of which
+    ``starts[k]`` is loaded before step k > 0.  Returns the metrics,
+    launches and gradients of each step and, on rank 0 of a mesh, the
+    state before each step (``starts``)."""
+    import copy
+    import torch
+    from pesr_torch import parallel
+    from pesr_torch.models.discriminator import (Discriminator,
+                                                 set_batch_stats_mesh)
+    from pesr_torch.models.generator import Generator
+    from pesr_torch.ops import kernels
+    from pesr_torch.training.state import (add_discriminator,
+                                           create_generator_state, init_vgg)
+    from pesr_torch.training.steps import make_gan_step, make_pretrain_step
+    dev = torch.device("cuda")
+    opts = _gan_opts()
+    if case == "pretrain":
+        opts = dataclasses.replace(opts, phase="pretrain", fold_train=True)
+    state = create_generator_state(opts, dev, Generator(
+        SCALE, BLOCKS, CHANNELS, device=dev, seed=seed), mesh=mesh)
+    if case == "gan":
+        add_discriminator(state, opts, dev, Discriminator(
+            opts.hr_patch_size, device=dev, seed=seed + 1))
+        state.vgg = init_vgg(opts, dev)
+        if fault:
+            set_batch_stats_mesh(state.discriminator, None)
+        step = make_gan_step(opts)
+    else:
+        step = make_pretrain_step(opts)
+    nets = [n for n in (state.generator, state.discriminator) if n is not None]
+    optims = [o for o in (state.optimizer, state.d_optimizer) if o is not None]
+    block = parallel.batch_sharding(mesh, TRAIN_BATCH)
+    out = {"metrics": [], "launches": [], "grads": [], "starts": [None]}
+    for k in range(steps):
+        if k and starts is not None:
+            with torch.no_grad():
+                for net, params in zip(nets, starts[k]["params"]):
+                    for p, q in zip(net.parameters(), params):
+                        p.copy_(q)
+            for o, sd in zip(optims, starts[k]["optimizers"]):
+                # a copy: the optimizer would update the loaded moments in
+                # place, and the next run loads the same start
+                o.load_state_dict(copy.deepcopy(sd))
+            state.step = starts[k]["step"]
+        elif k and mesh is not None and mesh.rank == 0 and not fault:
+            out["starts"].append({
+                "params": [[p.detach().clone() for p in n.parameters()]
+                           for n in nets],
+                "optimizers": [copy.deepcopy(o.state_dict()) for o in optims],
+                "step": state.step})
+        lr_img, hr_img = _train_batch(seed=100 * seed + k)
+        kernels.reset_launch_counts()
+        m = step(state, lr_img[block], hr_img[block])
+        out["launches"].append(kernels.launch_counts())
+        out["metrics"].append({n: float(v) for n, v in m.items()})
+        out["grads"].append({
+            t: {n: p.grad.detach().float().clone()
+                for n, p in net.named_parameters()}
+            for t, net in (("g", state.generator), ("d", state.discriminator))
+            if net is not None})
+    return out
+
+
+def _par_agreement(got: dict, ref: dict, zero_d=()) -> list:
+    """Per step, the step limits' readings between two runs: |d| of the
+    losses, and the least cosine of the step's gradients over the tensors
+    (those whose gradient norm is under 1e-4 of the largest left out, as
+    :func:`gan_step_agreement`, and D's ``zero_d``; ``cos_d_all`` and
+    ``worst_d_all`` read D with ``zero_d`` kept, for the record)."""
+    import torch
+
+    def least(a, b, names):
+        return min((float(torch.nn.functional.cosine_similarity(
+            a[n].flatten(), b[n].flatten(), dim=0)), n) for n in names)
+
+    out = []
+    for k, (m, mr) in enumerate(zip(got["metrics"], ref["metrics"])):
+        r = {}
+        for key in ("l1", "d_loss", "g_loss"):
+            if key in mr:
+                r[key] = abs(m[key] - mr[key])
+                r[key + "_ref"] = abs(mr[key])
+        for net, grads in ref["grads"][k].items():
+            norms = {n: float(g.norm()) for n, g in grads.items()}
+            keep = [n for n in grads if norms[n] > 1e-4 * max(norms.values())]
+            mine = got["grads"][k][net]
+            if net == "d":
+                r["cos_d_all"], r["worst_d_all"] = least(mine, grads, keep)
+                keep = [n for n in keep if n not in zero_d]
+            r[f"cos_{net}"], r[f"worst_{net}"] = least(mine, grads, keep)
+        out.append(r)
+    return out
+
+
+def _par_within(case: str, r: dict) -> bool:
+    """One step's readings (:func:`_par_agreement`) within the limits."""
+    if case == "pretrain":
+        return r["l1"] <= STEP_L1_TOL and r["cos_g"] >= GRAD_COS_FLOOR
+    return (r["d_loss"] <= GAN_LIMITS["d_loss"]
+            and r["g_loss"] <= (GAN_LIMITS["g_loss_atol"]
+                                + GAN_LIMITS["g_loss_rtol"] * r["g_loss_ref"])
+            and r["cos_g"] >= GAN_LIMITS["cos_g"]
+            and r["cos_d"] >= GAN_LIMITS["cos_d"])
+
+
+def rank_train(workdir: str, seed: int = 0,
+               cases=("pretrain", "gan")) -> None:
+    """A rank of the parallel phase's training check: the 2-rank steps of
+    ``cases`` (and with "gan" one step with PAR_FAULT), then on rank 0
+    the one-process steps and the agreement, written to
+    ``workdir/par_train.json``; ``seed`` as :func:`_par_case`."""
+    import torch
+    from pesr_torch import parallel
+    from pesr_torch.models.discriminator import Discriminator
+    mesh = _rank_mesh()
+    print(f"rank {mesh.rank} of {mesh.size} on {mesh.device} "
+          f"({mesh.backend})", flush=True)
+    runs = {}
+    for case in cases:
+        runs[(case, False)] = _par_case(case, mesh, seed=seed)
+        if case == "gan":
+            runs[(case, True)] = _par_case(case, mesh, True, seed=seed,
+                                           steps=1)
+    for (case, fault), run in runs.items():
+        print(f"{case}{' (fault)' if fault else ''}: launches per step on "
+              f"this rank {run['launches']}", flush=True)
+    torch.cuda.empty_cache()
+    parallel.barrier(mesh)
+    if mesh.rank != 0:
+        return
+    # the names depend on the number of stages only
+    zero_d = par_zero_grad_d(Discriminator(16, base_channels=1,
+                                           dense_features=1, device="cpu",
+                                           seed=None))
+    res = {"launches": {c: runs[(c, False)]["launches"] for c in cases},
+           "zero_grad_d": zero_d}
+    t0 = time.perf_counter()
+    for case in cases:
+        two = runs.pop((case, False))
+        ref = _par_case(case, None, starts=two["starts"], seed=seed)
+        res[case] = _par_agreement(two, ref, zero_d)
+        res[case + " metrics"] = {"2 ranks": two["metrics"],
+                                  "1 process": ref["metrics"]}
+        if case == "gan":
+            res["fault"] = _par_agreement(runs.pop((case, True)), ref,
+                                          zero_d)
+        del ref, two
+        torch.cuda.empty_cache()
+    print(f"the one-process steps took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    with open(os.path.join(workdir, "par_train.json"), "w") as fh:
+        json.dump(res, fh)
+
+
+def _div2k_sized_lrs():
+    """The main phase's two 336 x 510 LR images."""
+    from pesr_torch.data.datasets import (SyntheticImages,
+                                          host_bicubic_downsample)
+    src = SyntheticImages(N_IMAGES, LR_H * SCALE, LR_W * SCALE, seed=7)
+    return [host_bicubic_downsample(src.get(i), SCALE)
+            for i in range(N_IMAGES)]
+
+
+@contextlib.contextmanager
+def resblock_shapes():
+    """Within: the set of input shapes [B, H, W, C] that the inference
+    apply (``pesr_torch.models.kernel_apply``) hands ``fused_resblock``."""
+    import pesr_torch.models.kernel_apply as ka
+    inner, seen = ka.fused_resblock, set()
+
+    def spy(x, *args, **kw):
+        seen.add(tuple(x.shape))
+        return inner(x, *args, **kw)
+
+    ka.fused_resblock = spy
+    try:
+        yield seen
+    finally:
+        ka.fused_resblock = inner
+
+
+def hold_resblock_at(shapes, seed: int) -> list:
+    """``fused_resblock`` against its plain version at each of ``shapes``
+    (the kernels phase's inputs and tolerance, flagship res_scale)."""
+    return [check_resblock(*shape, 0.1, seed=seed + i)["max_abs_err"]
+            for i, shape in enumerate(sorted(shapes))]
+
+
+def rank_infer(workdir: str) -> None:
+    """A rank of the parallel phase's inference check: the folded flagship
+    engine with ``mesh_axis`` tiles and batch on the two 336 x 510 images
+    against the single-process engine at the same geometry (and, batch
+    mode, on each rank's block), its launches and MP/s, and the resblock
+    kernel against its plain version at the shapes this rank gave it."""
+    import numpy as np
+    import torch
+    from pesr_torch import parallel
+    from pesr_torch.models.generator import Generator
+    from pesr_torch.models.kernel_apply import KernelApply
+    from pesr_torch.ops import kernels
+    from pesr_torch.ops.tiling import BatchTiledUpscaler
+    mesh = _rank_mesh()
+    lrs = _div2k_sized_lrs()
+    batch = np.stack(lrs)
+    ap = KernelApply(Generator(SCALE, BLOCKS, CHANNELS, device=mesh.device,
+                               seed=0), fold=True)
+    res = {}
+    for axis in ("tiles", "batch"):
+        eng = BatchTiledUpscaler(ap, SCALE, "auto", 8, mesh=mesh,
+                                 mesh_axis=axis)
+        grid = eng.grid(N_IMAGES, LR_H, LR_W)
+        single = BatchTiledUpscaler(ap, SCALE, tuple(grid[2:]), 8,
+                                    device=mesh.device)
+        if single.grid(N_IMAGES, LR_H, LR_W) != grid:
+            fail(f"{axis}: the single-process engine cannot take the grid "
+                 f"{grid}")
+        eng.upscale_many(lrs, N_IMAGES)          # warm up
+        kernels.reset_launch_counts()
+        ap.forwards = 0
+        with resblock_shapes() as shapes:
+            got = eng.upscale_batch(batch)
+        launches, forwards = kernels.launch_counts(), ap.forwards
+        held = hold_resblock_at(shapes, seed=60 + 10 * mesh.rank)
+        ref = single.upscale_batch(batch)
+        own = None
+        if axis == "batch":  # this rank's block through the single engine
+            block = parallel.batch_sharding(mesh, N_IMAGES)
+            own = np.array_equal(got[block], single.upscale_batch(
+                batch[block]))
+        times = []
+        for _ in range(3):
+            parallel.barrier(mesh)
+            t0 = time.perf_counter()
+            eng.upscale_many(lrs, N_IMAGES)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        mp = N_IMAGES * LR_H * LR_W * SCALE * SCALE / 1e6
+        res[axis] = {
+            "grid": list(grid), "launches": launches, "forwards": forwards,
+            "bitwise_whole_batch": bool(np.array_equal(got, ref)),
+            "max_lsb_whole_batch": int(np.abs(got.astype(int)
+                                              - ref.astype(int)).max()),
+            "bitwise_own_block": own,
+            "resblock_shapes": sorted(shapes), "resblock_max_abs_err": held,
+            "mp_per_s": mp / min(times), "times": times}
+        print(f"mesh_axis {axis}: grid {grid}, {forwards} forwards on this "
+              f"rank, launches {launches}, resblock inputs "
+              f"{sorted(shapes)} held to the plain version (max |d| "
+              f"{held}), canvas bitwise the single-process"
+              f" engine's: {res[axis]['bitwise_whole_batch']} (max "
+              f"{res[axis]['max_lsb_whole_batch']} LSB)"
+              + ("" if own is None else
+                 f", this rank's block bitwise the single-process engine on "
+                 f"it: {res[axis]['bitwise_own_block']}")
+              + f"; {res[axis]['mp_per_s']:.2f} MP/s", flush=True)
+    with open(os.path.join(workdir, f"par_infer_{mesh.rank}.json"),
+              "w") as fh:
+        json.dump(res, fh)
+
+
+def _nccl_world_of_one(card: str, workdir: str) -> dict:
+    """``python -m pesr_torch.train --distributed --mesh_shape 1`` on NCCL
+    at world size 1 (the ``PESR_*`` contract), against the same run
+    without a process group: the logged L1 of every step bitwise."""
+    args = ["-m", "pesr_torch.train", "--num_blocks", str(BLOCKS),
+            "--num_channels", str(CHANNELS), "--scale", str(SCALE),
+            "--batch_size", str(TRAIN_BATCH), "--patch_size",
+            str(TRAIN_PATCH), "--steps_per_epoch", "3", "--num_epochs", "1",
+            "--log_every", "1", "--eval_every", "0", "--train_dataset",
+            "synthetic"]
+    l1 = {}
+    for name in ("nccl", "plain"):
+        ck = os.path.join(workdir, f"nccl_{name}")
+        argv = [sys.executable, *args, "--check_point", ck]
+        if name == "nccl":
+            out = _run_ranks(argv + ["--distributed", "--mesh_shape", "1"],
+                             n=1, timeout=300)[0]
+            if "distributed: process 0 of 1 (nccl)" not in out:
+                fail("--distributed did not bring NCCL up at world size 1")
+        else:
+            subprocess.run(argv, check=True, timeout=300,
+                           cwd=os.path.dirname(os.path.abspath(__file__)),
+                           stdout=subprocess.DEVNULL)
+        with open(os.path.join(ck, "pretrain.jsonl")) as fh:
+            l1[name] = [json.loads(line)["l1"] for line in fh]
+    same = l1["nccl"] == l1["plain"] and len(l1["plain"]) == 3
+    print(f"[parallel] NCCL world size 1 vs no process group, L1 per step: "
+          f"{l1['nccl']} vs {l1['plain']}: bitwise {same} [{card}]",
+          flush=True)
+    if not same:
+        fail("the NCCL world-size-1 run's L1 differs from the plain run's")
+    return l1
+
+
+def phase_parallel(card: str, workdir: str) -> dict:
+    """Multi-process runs on the one card: two gloo ranks (NCCL refuses two
+    ranks on one device) over CUDA tensors on it, so no number here is a
+    speed-up.  Flagship pretrain (folded) and GAN steps, 2 x 8 vs 1 x 16
+    on the same global batches, under the step limits, with a planted
+    fault that must break them; launches per step on each rank; NCCL at
+    world size 1 through the train CLI; the tiles and batch engines on
+    the two 336 x 510 images bitwise the single-process engine."""
+    t0 = time.perf_counter()
+    print(f"[parallel] {PAR_RANKS} gloo ranks on one card ({card}): "
+          f"{PAR_STEPS} flagship steps each of pretrain (folded) and GAN "
+          f"(chain, JAX defaults), global batch {TRAIN_BATCH} as "
+          f"{PAR_RANKS} x {TRAIN_BATCH // PAR_RANKS}, against one process "
+          f"x {TRAIN_BATCH}", flush=True)
+    _run_ranks(_rank_argv(f"rank_train({workdir!r})"))
+    t_train = time.perf_counter() - t0
+    with open(os.path.join(workdir, "par_train.json")) as fh:
+        res = json.load(fh)
+    print(f"  D's tensors left out of cos_d (exact gradient 0): "
+          f"{res['zero_grad_d']}", flush=True)
+    for case in ("pretrain", "gan", "fault"):
+        name = {"fault": f"gan with the planted fault ({PAR_FAULT})"
+                }.get(case, case)
+        for k, r in enumerate(res[case]):
+            print(f"  {name}, step {k + 1}: " + ", ".join(
+                f"{n} {v:.3e}" if isinstance(v, float) else f"{n} {v}"
+                for n, v in r.items()), flush=True)
+    for case in ("pretrain", "gan"):
+        print(f"  {case} metrics: {res[case + ' metrics']}", flush=True)
+    for case, want in (("pretrain", {"fused_resblock": BLOCKS,
+                                     "fused_upsampler_stage": 0}),
+                       ("gan", {"fused_resblock": BLOCKS,
+                                "fused_upsampler_stage": 2})):
+        if any(c != want for c in res["launches"][case]):
+            fail(f"parallel {case}: launches per step on rank 0 "
+                 f"{res['launches'][case]} != {want}")
+    held = [(case, r) for case in ("pretrain", "gan") for r in res[case]]
+    if not all(_par_within(case, r) for case, r in held):
+        fail("the 2-rank steps disagree with the one-process steps")
+    if _par_within("gan", res["fault"][0]):
+        fail(f"the GAN limits pass the planted fault '{PAR_FAULT}'")
+    t1 = time.perf_counter()
+    nccl = _nccl_world_of_one(card, workdir)
+    t_nccl = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    print(f"[parallel] mesh_axis tiles and batch, folded flagship engine, "
+          f"{N_IMAGES} LR images {LR_H}x{LR_W}, {PAR_RANKS} gloo ranks on "
+          f"one card", flush=True)
+    _run_ranks(_rank_argv(f"rank_infer({workdir!r})"))
+    infer = []
+    for r in range(PAR_RANKS):
+        with open(os.path.join(workdir, f"par_infer_{r}.json")) as fh:
+            infer.append(json.load(fh))
+    for axis in ("tiles", "batch"):
+        for r, res_r in enumerate(infer):
+            a = res_r[axis]
+            own = a["bitwise_own_block"]
+            if not (a["bitwise_whole_batch"] or own):
+                fail(f"mesh_axis {axis}: rank {r}'s canvas differs from the "
+                     f"single-process engine's")
+            per_fwd = {k: v / max(a["forwards"], 1)
+                       for k, v in a["launches"].items()}
+            if a["forwards"] < 1 or per_fwd != {"fused_resblock": BLOCKS,
+                                                "fused_upsampler_stage": 0}:
+                fail(f"mesh_axis {axis}: rank {r} launches {a['launches']} "
+                     f"over {a['forwards']} forwards")
+        print(f"  mesh_axis {axis}: {[x[axis]['mp_per_s'] for x in infer]} "
+              f"MP/s per rank (two ranks share one card: not a speed-up) "
+              f"[{card}]", flush=True)
+    print(f"[parallel] phase took {time.perf_counter() - t0:.1f} s: "
+          f"training check {t_train:.1f} s, NCCL world of one {t_nccl:.1f} "
+          f"s, inference {time.perf_counter() - t1:.1f} s", flush=True)
+    return {"train": res, "nccl": nccl, "infer": infer}
+
+
+def serve_check(path: str, imgs_path: str, out_path: str) -> None:
+    """In a fresh process that imports only ``pesr_torch.serving``: load
+    the artifact, serve the saved images, write the output and the
+    launches of the resblock op inside the program."""
+    import numpy as np
+    import pesr_torch.serving as serving
+    up = serving.load_upscaler(path)
+    from pesr_torch.ops import kernels   # imported by serving already
+    imgs = np.load(imgs_path)
+    up(imgs)                                   # first call: warm up
+    kernels.reset_launch_counts()
+    out = up(imgs)
+    mods = sorted(m for m in sys.modules if m.startswith("pesr_torch."))
+    np.save(out_path, out)
+    with open(out_path + ".json", "w") as fh:
+        json.dump({"launches": kernels.launch_counts(), "modules": mods}, fh)
+
+
+def phase_serve(card: str, workdir: str) -> dict:
+    """The serving artifact of the folded flagship engine at [2, 336, 510]:
+    exported, loaded in a fresh process that imports only
+    ``pesr_torch.serving`` (bitwise the live engine, 32 resblock launches
+    per tile-batch forward inside the program), MP/s in turns with the
+    live engine, a ``batch="any"`` artifact on a batch of 1, and an int8
+    artifact bitwise its live engine."""
+    import numpy as np
+    import torch
+    from pesr_torch.models.generator import Generator
+    from pesr_torch.models.kernel_apply import KernelApply
+    from pesr_torch.models.quant_apply import (default_calib_tiles,
+                                               int8_inference)
+    from pesr_torch.ops.tiling import BatchTiledUpscaler
+    from pesr_torch.serving import export_upscaler, load_upscaler
+    t0 = time.perf_counter()
+    lrs = _div2k_sized_lrs()
+    batch = np.stack(lrs)
+    gen = Generator(SCALE, BLOCKS, CHANNELS, seed=0)
+    ap = KernelApply(gen, fold=True)
+    eng = BatchTiledUpscaler(ap, SCALE, "auto", 8)
+    path = os.path.join(workdir, "flagship.pesr")
+    t1 = time.perf_counter()
+    meta = export_upscaler(eng, N_IMAGES, LR_H, LR_W, path,
+                           precision_path="folded-bfloat16")
+    t_export = time.perf_counter() - t1
+    print(f"[serve] exported the folded flagship engine at [{N_IMAGES},"
+          f"{LR_H},{LR_W}] in {t_export:.2f} s: {os.path.getsize(path)} "
+          f"bytes, grid {meta['grid']}, platforms {meta['platforms']}",
+          flush=True)
+    live = eng.upscale_batch(batch)
+    imgs_path = os.path.join(workdir, "serve_imgs.npy")
+    out_path = os.path.join(workdir, "serve_out.npy")
+    np.save(imgs_path, batch)
+    subprocess.run(_rank_argv(f"serve_check({path!r}, {imgs_path!r}, "
+                              f"{out_path!r})"), check=True, timeout=300,
+                   cwd=os.path.dirname(os.path.abspath(__file__)))
+    got = np.load(out_path)
+    with open(out_path + ".json") as fh:
+        info = json.load(fh)
+    forwards = meta["grid"]["nh"] * meta["grid"]["nw"]
+    want = {"fused_resblock": BLOCKS * forwards, "fused_upsampler_stage": 0}
+    model_code = [m for m in info["modules"] if m.startswith(
+        ("pesr_torch.models", "pesr_torch.training", "pesr_torch.config"))]
+    print(f"  fresh process (imports only pesr_torch.serving): output "
+          f"bitwise the live engine's: {np.array_equal(got, live)}; "
+          f"launches inside the artifact {info['launches']} over {forwards} "
+          f"tile-batch forward(s) (expected {want}); model modules loaded: "
+          f"{model_code}", flush=True)
+    if not np.array_equal(got, live):
+        fail("the loaded artifact's output differs from the live engine's")
+    if info["launches"] != want or model_code:
+        fail("the artifact did not run the resblock kernel as the engine "
+             "does, or needed model code")
+    served = load_upscaler(path)
+    mp = N_IMAGES * LR_H * LR_W * SCALE * SCALE / 1e6
+    times = {"artifact": [], "engine": []}
+    for _ in range(2):
+        served(batch)
+        eng.upscale_batch(batch)
+    for _ in range(4):
+        for name, fn in (("artifact", served), ("engine", eng.upscale_batch)):
+            t1 = time.perf_counter()
+            fn(batch)
+            times[name].append(time.perf_counter() - t1)
+    rates = {k: mp / min(v) for k, v in times.items()}
+    print(f"  MP/s in turns (best of 4, host transfers included): artifact "
+          f"{rates['artifact']:.2f}, live engine {rates['engine']:.2f} "
+          f"[{card}]", flush=True)
+    dyn = os.path.join(workdir, "any.pesr")
+    export_upscaler(eng, "any", LR_H, LR_W, dyn, trace_batch=N_IMAGES)
+    one = load_upscaler(dyn)(batch[:1])
+    with resblock_shapes() as shapes:
+        ok_dyn = np.array_equal(one, eng.upscale_batch(batch[:1]))
+    print(f"  batch=\"any\" artifact (grid for trace_batch {N_IMAGES}) on a "
+          f"batch of 1: bitwise the live engine's: {ok_dyn}; the engine's "
+          f"resblock inputs {sorted(shapes)}, held to the plain version:",
+          flush=True)
+    hold_resblock_at(shapes, seed=80)
+    if not ok_dyn:
+        fail('the batch="any" artifact differs from the live engine')
+    del served
+    torch.cuda.empty_cache()
+    eng8 = BatchTiledUpscaler(int8_inference(gen, default_calib_tiles(lrs)),
+                              SCALE, "auto", 8)
+    p8 = os.path.join(workdir, "int8.pesr")
+    export_upscaler(eng8, N_IMAGES, LR_H, LR_W, p8,
+                    precision_path="int8-w8a8")
+    ok8 = np.array_equal(load_upscaler(p8)(batch), eng8.upscale_batch(batch))
+    print(f"  int8 artifact bitwise its live engine: {ok8}", flush=True)
+    if not ok8:
+        fail("the int8 artifact differs from its live engine")
+    print(f"[serve] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"rates": rates, "launches": info["launches"],
+            "forwards": forwards, "export_s": t_export}
+
+
 def main() -> int:
     try:
         import torch
@@ -3032,6 +3633,8 @@ def main() -> int:
         phase_qat(card, workdir)
         quant_res = phase_quant(card, train_res["best"], workdir)
         data_res = phase_data(card, workdir)
+        par_res = phase_parallel(card, workdir)
+        serve_res = phase_serve(card, workdir)
     sources = {"fused_resblock": ("pesr_torch/csrc/resblock.cu",
                                   "pesr_tpu/ops/pallas/resblock.py:96"),
                "fused_upsampler_stage": ("pesr_torch/csrc/upsampler.cu",
@@ -3067,7 +3670,14 @@ def main() -> int:
              data_res["device_run"]["launches_per_step"][name],
          "f32_train_launches": data_res["f32_launches"][name],
          "bf16_param_launches_per_step":
-             data_res["bf16_param_launches_per_step"][name]}
+             data_res["bf16_param_launches_per_step"][name],
+         "ddp_launches_per_rank_per_step": {
+             c: par_res["train"]["launches"][c][0][name]
+             for c in ("pretrain", "gan")},
+         "spatial_launches_per_rank": [
+             r["tiles"]["launches"][name] for r in par_res["infer"]],
+         "artifact_launches_per_forward":
+             serve_res["launches"][name] / serve_res["forwards"]}
         for name, (src, rep) in sources.items()]}
     conv = quant_res["conv"]
     print(f"int8 conv (library route, torch._int_mm; not a kernel port): "

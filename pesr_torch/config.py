@@ -20,13 +20,24 @@ kernel), ``--param_dtype`` (bfloat16 parameters and Adam moments),
 ``--trim_host_heap``.  Both CLIs read the datasets ``synthetic``,
 ``synthetic_hard``, ``synthetic_hard_x4``, ``synthetic_device`` and
 ``natural`` besides folders.  On/off flags have their ``--no_`` twins.
-Flags the port does not implement yet are not in the parsers, so argparse
-rejects them instead of ignoring them: in test mode ``--param_dtype``
-(JAX's ``test.py`` never reads it), ``--mesh_shape``, ``--mesh_axis``,
-``--export_artifact``; in train mode ``--mesh_shape``, ``--distributed``.
-The port always runs its kernels (no ``--use_pallas``) and its recompute
-backward keeps only each block's input (no ``--remat``, no
-``--unroll_body``), so JAX's resolver never steps aside for those.
+Both CLIs take ``--mesh_shape N`` and ``--distributed`` (one process
+per device: the process group from the ``PESR_*`` contract or torchrun,
+``pesr_torch/parallel``): training data parallel over N processes, and
+in test mode the engine's ``--mesh_axis batch|tiles`` (each rank
+upscales its block of the batch, or its share of each image's tiles).
+Test mode also has ``--export_artifact PATH`` (the serving artifact of
+``pesr_torch/serving.py``).  Each parser takes the flags its CLI reads;
+a flag it does not take is an argparse error, not ignored.  So these
+flags of JAX's shared parser are not in the port's: in test mode the
+training flags JAX's ``test.py`` never reads (``--param_dtype``,
+``--batch_size``, ``--patch_size``, ``--grad_accum``, ``--fold_train``,
+``--train_dataset``, ``--valid_dataset``, ``--num_valids``,
+``--num_repeats``, ``--vgg_weights``); in train mode the inference flags
+JAX's loop never reads (``--fold``, ``--quant``, ``--quant_guard_db``,
+``--mesh_axis``, ``--test_dataset``).  The port always runs its kernels
+(no ``--use_pallas``) and its recompute backward keeps only each block's
+input (no ``--remat``, no ``--unroll_body``), so JAX's resolver never
+steps aside for those.
 """
 
 from __future__ import annotations
@@ -107,6 +118,12 @@ class Opts:
     quant: str = "none"           # none | int8 (W8A8 inference, folded)
     quant_guard_db: float = 0.0   # > 0: int8-vs-bf16 agreement floor (dB)
                                   # below which the guard falls back
+    export_artifact: str = ""     # serving artifact path (test mode)
+    # multi-device: one process per device
+    mesh_shape: str = ""          # N processes of the mesh; "" = the world
+    mesh_axis: str = "batch"      # inference: batch (DP) | tiles (spatial)
+    distributed: bool = False     # bring the process group up (PESR_* or
+                                  # torchrun's environment)
     device: str = "cuda"
 
     @property
@@ -217,6 +234,15 @@ def build_parser(mode: str = "test") -> argparse.ArgumentParser:
                        choices=["bfloat16", "float32"],
                        help="bfloat16: the hand-written kernels; float32: "
                             "plain PyTorch convs with TF32 off (no kernel)")
+        g.add_argument("--export_artifact", default=d.export_artifact,
+                       help="write the tiled engine as a serving artifact "
+                            "(pesr_torch/serving.py) for the first image's "
+                            "shape at --infer_batch and exit")
+        g.add_argument("--mesh_axis", default=d.mesh_axis,
+                       choices=["batch", "tiles"],
+                       help="multi-device inference: shard the image batch "
+                            "(throughput) or each image's tile grid "
+                            "(spatial; single-image latency)")
     else:
         g = p.add_argument_group("training")
         g.add_argument("--phase", default=d.phase,
@@ -307,6 +333,14 @@ def build_parser(mode: str = "test") -> argparse.ArgumentParser:
                        choices=["float32", "bfloat16"],
                        help="dtype of the generator's and discriminator's "
                             "parameters and of their Adam moments")
+    g = p.add_argument_group("multi-device")
+    g.add_argument("--mesh_shape", default=d.mesh_shape,
+                   help="processes of the mesh, one device each (\"\" = "
+                        "the whole process group; N > 1 needs one)")
+    _add_bool_flag(g, "distributed", d.distributed,
+                   "bring the process group up from PESR_COORDINATOR / "
+                   "PESR_NUM_PROCESSES / PESR_PROCESS_ID or torchrun's "
+                   "environment (raises without either)")
     p.add_argument("--device", default=d.device,
                    help="cuda (default; raises without CUDA) or cpu")
     return p

@@ -39,10 +39,12 @@ def denormalize_to_uint8(x: torch.Tensor) -> torch.Tensor:
 
 
 def dihedral_bits(generator: torch.Generator, batch: int,
-                  device=None) -> torch.Tensor:
+                  device=None, block: slice = slice(None)) -> torch.Tensor:
     """[3, batch] bool (vflip, hflip, transpose), each bit a fair coin,
-    drawn on the CPU from ``generator`` and moved to ``device``."""
+    drawn on the CPU from ``generator``; the samples ``block`` of them (a
+    rank's block of the global batch) moved to ``device``."""
     bits = torch.randint(0, 2, (3, batch), generator=generator).bool()
+    bits = bits[:, block].contiguous()
     return bits if device is None else host_to_device(bits,
                                                       torch.device(device))
 

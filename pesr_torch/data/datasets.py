@@ -484,12 +484,21 @@ def _decode_within_budget(src) -> Optional[List[np.ndarray]]:
     return images
 
 
-def make_train_iterator(opts, start_step: int = 0) -> Tuple[Iterator, bool]:
+def make_train_iterator(opts, start_step: int = 0, mesh=None
+                        ) -> Tuple[Iterator, bool]:
     """The train-batch stream of one process: ``(iterator,
     lr_from_files)``; the iterator yields ``(lr_u8 or None, hr_u8)`` and
     has ``close()``.  ``start_step`` (a resume) is folded into the seed,
     as the JAX package does, so a resumed run continues on fresh data
     instead of replaying what it already trained on.
+
+    On a ``mesh`` of P processes (JAX: ``jax.process_count()``) the
+    batch is this rank's ``batch_size / P`` (the global batch must
+    divide) from a stream of its own, seeded ``seed * 1_000_003 + rank``
+    before the resume's re-seed: identical seeds would train on P copies
+    of one block.  ``synthetic_device`` keeps one key on every rank
+    instead and renders this rank's block of the global batch, each
+    sample fixed by its global index.
 
     ``synthetic_device``: :class:`DeviceSyntheticStream` on
     ``opts.device`` (the batches are device tensors).  Otherwise, in
@@ -501,13 +510,21 @@ def make_train_iterator(opts, start_step: int = 0) -> Tuple[Iterator, bool]:
         from pesr_torch.data.device_synth import DeviceSyntheticStream
         print("HR source: rendered on the device (synthetic_device), "
               "no batch upload")
-        return DeviceSyntheticStream(opts, opts.device, start_step), False
-    seed = opts.seed
+        return (DeviceSyntheticStream(opts, opts.device, start_step, mesh),
+                False)
+    n_proc = mesh.size if mesh is not None else 1
+    batch, seed = opts.batch_size, opts.seed
+    if n_proc > 1:
+        if opts.batch_size % n_proc:
+            raise ValueError(
+                f"--batch_size {opts.batch_size} must be divisible by "
+                f"the process count {n_proc} (it is the GLOBAL batch)")
+        batch = opts.batch_size // n_proc
+        seed = opts.seed * 1_000_003 + mesh.rank
     if start_step:
         seed = seed * 2_147_483_647 + start_step
     src = _resolve_train_source(opts)
-    it = PatchIterator(src, opts.patch_size, opts.scale, opts.batch_size,
-                       seed=seed)
+    it = PatchIterator(src, opts.patch_size, opts.scale, batch, seed=seed)
     if it.use_lr_files:
         why = "LR files: each HR crop pairs with its LR file's crop"
     elif not native.available():
@@ -519,7 +536,7 @@ def make_train_iterator(opts, start_step: int = 0) -> Tuple[Iterator, bool]:
         if images is not None:
             try:
                 sampler = native.NativePatchSampler(
-                    images, opts.hr_patch_size, opts.batch_size, seed=seed)
+                    images, opts.hr_patch_size, batch, seed=seed)
             except ValueError as e:
                 why = f"native sampler refused the corpus: {e}"
             else:

@@ -73,10 +73,12 @@ def _param_table(hp: int, f_lo: float, f_hi: float):
     )
 
 
-def draw_params(key: int, batch: int, hp: int, scale: int) -> torch.Tensor:
-    """[batch, P] float32 parameters on the host; row ``i`` is drawn from
-    a generator seeded with ``mix_seed(key, i)`` alone, so it does not
-    depend on the batch size."""
+def draw_params(key: int, batch: int, hp: int, scale: int,
+                start: int = 0) -> torch.Tensor:
+    """[batch, P] float32 parameters on the host of the samples ``start``
+    to ``start + batch``; sample ``i``'s row is drawn from a generator
+    seeded with ``mix_seed(key, i)`` alone, so it depends neither on the
+    batch size nor on which rank draws it."""
     f_lo, f_hi = band_for_scale(scale)
     table = _param_table(hp, f_lo, f_hi)
     lo = torch.tensor([t[2] for t in table for _ in range(t[1])],
@@ -87,7 +89,7 @@ def draw_params(key: int, batch: int, hp: int, scale: int) -> torch.Tensor:
         torch.rand(len(lo), dtype=torch.float64,
                    generator=torch.Generator().manual_seed(
                        mix_seed(key, i)))
-        for i in range(batch)])
+        for i in range(start, start + batch)])
     return (lo + (hi - lo) * u).float()
 
 
@@ -176,14 +178,16 @@ def _render(params: torch.Tensor, hp: int, scale: int) -> torch.Tensor:
 
 
 def render_hr_batch(seed: Union[int, torch.Generator], batch: int, hp: int,
-                    scale: int, device="cuda") -> torch.Tensor:
-    """[batch, hp, hp, 3] uint8 HR patches on ``device``.  ``seed``: an
-    int key, or a ``torch.Generator`` to draw one from.  Sample ``i`` is
-    fixed by (key, i)."""
+                    scale: int, device="cuda", start: int = 0
+                    ) -> torch.Tensor:
+    """[batch, hp, hp, 3] uint8 HR patches on ``device``: the samples
+    ``start`` to ``start + batch`` of the key.  ``seed``: an int key, or a
+    ``torch.Generator`` to draw one from.  Sample ``i`` is fixed by
+    (key, i)."""
     if isinstance(seed, torch.Generator):
         seed = int(torch.randint(0, 1 << 62, (1,), generator=seed))
     dev = resolve_device(device)
-    params = draw_params(seed, batch, hp, scale)
+    params = draw_params(seed, batch, hp, scale, start)
     return _render(params.to(dev), hp, scale)
 
 
@@ -193,11 +197,17 @@ class DeviceSyntheticStream:
     tensor rendered on ``device``.  Batch ``s`` is rendered from the key
     ``mix_seed(base, s)``, where ``base`` is ``opts.seed``, with
     ``start_step`` folded in on a resume so it continues on fresh
-    content."""
+    content.  On a ``mesh`` of P processes every rank keeps that one key
+    and renders its contiguous ``batch_size / P`` samples of the global
+    batch, so the global batch is the one a single process renders."""
 
-    def __init__(self, opts, device, start_step: int = 0) -> None:
+    def __init__(self, opts, device, start_step: int = 0,
+                 mesh=None) -> None:
+        from pesr_torch.parallel import batch_sharding
         self.device = resolve_device(device)
-        self.batch, self.scale = opts.batch_size, opts.scale
+        block = batch_sharding(mesh, opts.batch_size)
+        self.batch, self.start = block.stop - block.start, block.start
+        self.scale = opts.scale
         self.hp = opts.patch_size * opts.scale
         self._base = (mix_seed(opts.seed, start_step) if start_step
                       else opts.seed)
@@ -210,7 +220,7 @@ class DeviceSyntheticStream:
         key = mix_seed(self._base, self._step)
         self._step += 1
         return None, render_hr_batch(key, self.batch, self.hp, self.scale,
-                                     self.device)
+                                     self.device, self.start)
 
     def close(self) -> None:
         """Nothing to release (the loop closes every stream)."""

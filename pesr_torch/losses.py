@@ -59,12 +59,14 @@ def _bce_logits(logits: torch.Tensor, target: float,
     return torch.mean(bce)
 
 
-def gan_losses(gan_type: str, focal_gamma: float = 0.0
+def gan_losses(gan_type: str, focal_gamma: float = 0.0,
+               batch_mean: Callable[[torch.Tensor], torch.Tensor] = torch.mean
                ) -> Dict[str, LossFn]:
     """``{"d": fn, "g": fn}``, each ``fn(d_real_logits, d_fake_logits)``.
     The discriminator has no sigmoid; the relativistic types compare real
     and fake logits pairwise (RSGAN) or against the other side's batch
-    mean (Ra*)."""
+    mean (Ra*), which ``batch_mean`` takes: over the global batch on a
+    mesh (``parallel.batch_mean``)."""
     g = focal_gamma
 
     def bce(x, t):
@@ -91,18 +93,20 @@ def gan_losses(gan_type: str, focal_gamma: float = 0.0
             return bce(df - dr, 1.0)
     elif gan_type == "RaSGAN":
         def d_loss(dr, df):
-            return 0.5 * (bce(dr - df.mean(), 1.0) + bce(df - dr.mean(), 0.0))
+            return 0.5 * (bce(dr - batch_mean(df), 1.0)
+                          + bce(df - batch_mean(dr), 0.0))
 
         def g_loss(dr, df):
-            return 0.5 * (bce(dr - df.mean(), 0.0) + bce(df - dr.mean(), 1.0))
+            return 0.5 * (bce(dr - batch_mean(df), 0.0)
+                          + bce(df - batch_mean(dr), 1.0))
     elif gan_type == "RaLSGAN":
         def d_loss(dr, df):
-            return 0.5 * (torch.mean((dr - df.mean() - 1.0) ** 2)
-                          + torch.mean((df - dr.mean() + 1.0) ** 2))
+            return 0.5 * (torch.mean((dr - batch_mean(df) - 1.0) ** 2)
+                          + torch.mean((df - batch_mean(dr) + 1.0) ** 2))
 
         def g_loss(dr, df):
-            return 0.5 * (torch.mean((dr - df.mean() + 1.0) ** 2)
-                          + torch.mean((df - dr.mean() - 1.0) ** 2))
+            return 0.5 * (torch.mean((dr - batch_mean(df) + 1.0) ** 2)
+                          + torch.mean((df - batch_mean(dr) - 1.0) ** 2))
     else:
         raise ValueError(f"unknown gan_type {gan_type!r}")
     return {"d": d_loss, "g": g_loss}

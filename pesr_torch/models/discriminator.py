@@ -17,7 +17,13 @@ As in the JAX module:
   ``torch.nn.utils.spectral_norm``, whose persistent ``u`` is another
   algorithm);
 * convs pad (1, 1) explicitly at both strides and compute in ``dtype``,
-  bias added in ``dtype``.
+  bias added in ``dtype``;
+* on a mesh of P processes (:func:`set_batch_stats_mesh`) the batch
+  statistics are the GLOBAL batch's, as under JAX's jit over a sharded
+  batch: two differentiable all-reduces per norm (the sum, then the
+  squared deviations from the global mean), whose backward carries every
+  rank's gradient through them, the gradient penalty's double backward
+  included.
 
 The module takes NHWC images (the generator's output layout) and runs
 NCHW; its dense head flattens (C, H, W), the torch SRGAN order, so its
@@ -36,6 +42,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from pesr_torch.models.generator import init_weights
+from pesr_torch.parallel import sum_all
 from pesr_torch.utils.device import resolve_device
 
 
@@ -98,13 +105,29 @@ class BatchStatNorm(nn.Module):
         self.weight = nn.Parameter(torch.ones(c, device=device))
         self.bias = nn.Parameter(torch.zeros(c, device=device))
         self.eps = eps
+        self.mesh = None  # set_batch_stats_mesh: statistics over a mesh
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
-        var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0,
-                                   keepdim=True)
+        if self.mesh is not None and self.mesh.collective:
+            dims = (0, 2, 3)
+            n = xf.shape[0] * xf.shape[2] * xf.shape[3] * self.mesh.size
+            mean = sum_all(self.mesh, xf.sum(dims, keepdim=True)) / n
+            dev = xf - mean
+            var = sum_all(self.mesh, (dev * dev).sum(dims, keepdim=True)) / n
+        else:
+            var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0,
+                                       keepdim=True)
         scale = torch.rsqrt(var + self.eps) * self.weight.view(1, -1, 1, 1)
         return ((xf - mean) * scale + self.bias.view(1, -1, 1, 1)).to(x.dtype)
+
+
+def set_batch_stats_mesh(d: nn.Module, mesh) -> None:
+    """Take every ``BatchStatNorm`` of ``d`` over the global batch of
+    ``mesh`` (None: this process's batch)."""
+    for m in d.modules():
+        if isinstance(m, BatchStatNorm):
+            m.mesh = mesh
 
 
 def head_side(hr_size: int, n_stages: int) -> int:

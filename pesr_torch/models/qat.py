@@ -11,7 +11,8 @@ plain generator state_dict.
 The fake-quantized operands are integers <= 127, which bf16 holds
 exactly, and the convs accumulate in f32, so the bf16 conv computes the
 integer product exactly.  Scales come from this batch's amax (no
-gradient), as in JAX.  The convs are ``F.conv2d`` (cuDNN on the card),
+gradient), as in JAX; on a mesh (data parallel) the GLOBAL batch's, as
+under JAX's jit over a sharded batch: one all-reduce (max) per conv.  The convs are ``F.conv2d`` (cuDNN on the card),
 as JAX's are ``lax.conv``: no hand-written kernel runs here.
 """
 
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from pesr_torch import parallel
 from pesr_torch.models.generator import Generator
 from pesr_torch.models.kernel_apply import generator_convs
 from pesr_torch.ops.kernels.common import conv3x3_nhwc
@@ -42,15 +44,16 @@ def _clip127(x: torch.Tensor) -> torch.Tensor:
 
 
 def fake_quant_conv(x: torch.Tensor, weight: torch.Tensor,
-                    bias: torch.Tensor, dtype=torch.bfloat16
+                    bias: torch.Tensor, dtype=torch.bfloat16, mesh=None
                     ) -> torch.Tensor:
     """W8A8 fake-quant SAME 3x3 conv of NHWC ``x`` with OIHW ``weight``:
     quantize ``x`` per input channel (scale amax / 127 over this batch),
     fold those scales into the weight, quantize it per output channel,
     convolve the integer-valued operands in ``dtype``, dequantize in f32
-    and add the bias; the result in ``dtype``."""
+    and add the bias; the result in ``dtype``.  ``mesh``: the amax is
+    taken over every rank's batch."""
     xf = x.float()
-    amax = xf.detach().abs().amax(dim=(0, 1, 2))
+    amax = parallel.max_all_(mesh, xf.detach().abs().amax(dim=(0, 1, 2)))
     s_in = amax.clamp_min(1e-6) / 127.0
     xq = _clip127(_ste_round(xf / s_in))
     w_fold = weight.float() * s_in[None, :, None, None]
@@ -67,13 +70,14 @@ class QatApply:
     tail convs fake-quantized (the int8 path's endpoint policy: head,
     upsampler and out stay float), in ``dtype``; NHWC [-1, 1] in, NHWC
     float32 out.  JAX's ``make_qat_apply``.  Folds nothing, so its
-    ``min_halo`` is 0 and it has no ``uint8_variant``."""
+    ``min_halo`` is 0 and it has no ``uint8_variant``.  ``mesh``: the
+    activation scales over the global batch of a data-parallel step."""
 
     min_halo = 0
 
     def __init__(self, generator: Generator,
-                 dtype: torch.dtype = torch.bfloat16) -> None:
-        self.generator, self.dtype = generator, dtype
+                 dtype: torch.dtype = torch.bfloat16, mesh=None) -> None:
+        self.generator, self.dtype, self.mesh = generator, dtype, mesh
         self.forwards = 0
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -91,10 +95,12 @@ class QatApply:
         y = head_y
         for c1, c2 in blocks:
             # JAX's jnp.maximum(y, 0): an exact 0 passes half the gradient
-            h = torch.maximum(fake_quant_conv(y, c1.weight, c1.bias, dt),
-                              zero)
-            y = y + rs * fake_quant_conv(h, c2.weight, c2.bias, dt)
-        y = fake_quant_conv(y, tail.weight, tail.bias, dt) + head_y
+            h = torch.maximum(fake_quant_conv(y, c1.weight, c1.bias, dt,
+                                              mesh=self.mesh), zero)
+            y = y + rs * fake_quant_conv(h, c2.weight, c2.bias, dt,
+                                         mesh=self.mesh)
+        y = fake_quant_conv(y, tail.weight, tail.bias, dt,
+                            mesh=self.mesh) + head_y
         for f, m in stages:
             y = pixel_shuffle(conv(y, m), f)
         return conv(y, out).float()

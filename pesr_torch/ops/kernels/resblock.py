@@ -13,9 +13,12 @@ kernel takes the weights packed K-major, ``(3, 3, C_out, C_in)`` bf16
 :func:`pack_resblock` makes them once, from torch OIHW weights, when the
 weights are loaded, and :func:`unpack_resblock` turns them back to HWIO.
 
-:func:`fused_resblock` launches the kernel for a CUDA tensor and runs
-:func:`resblock_reference`, the plain PyTorch version, for a CPU tensor.
-``fused_resblock.launches`` counts kernel launches.
+:func:`fused_resblock` calls the custom op ``pesr::fused_resblock``
+(``torch.library``), which launches the kernel for a CUDA tensor and
+runs :func:`resblock_reference`, the plain PyTorch version, for a CPU
+tensor; its fake implementation gives ``torch.export`` the output's
+shape, so an exported program calls the op instead of tracing into the
+ctypes launch.  ``fused_resblock.launches`` counts kernel launches.
 :func:`resblock_schedule` is the kernel's work decomposition, computed
 here so that the CPU tests can check it.  :func:`fused_resblock_train`
 is the differentiable form training uses: the kernel forward on weights
@@ -171,14 +174,32 @@ def fused_resblock(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                    res_scale: float = 0.1) -> torch.Tensor:
     """NHWC ``x`` -> ``x + res_scale * conv2(relu(conv1(x)))``.
 
-    Weights as :func:`pack_resblock` gives them.  CUDA tensor: the
-    hand-written kernel (bf16 x); raises on anything it does not take.
-    CPU tensor: :func:`resblock_reference`."""
-    if x.device.type == "cpu":
-        return resblock_reference(x, *unpack_resblock(w1, b1, w2, b2),
-                                  res_scale)
-    if x.device.type != "cuda":
+    Weights as :func:`pack_resblock` gives them.  Calls the custom op
+    ``pesr::fused_resblock``: on a CUDA tensor the hand-written kernel
+    (bf16 x; raises on anything it does not take), on a CPU tensor
+    :func:`resblock_reference`; any other device raises."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_resblock: unsupported device {x.device}")
+    return torch.ops.pesr.fused_resblock(x, w1, b1, w2, b2,
+                                         float(res_scale))
+
+
+fused_resblock.launches = 0
+
+
+@torch.library.custom_op("pesr::fused_resblock", mutates_args=(),
+                         device_types="cpu")
+def _resblock_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                 w2: torch.Tensor, b2: torch.Tensor,
+                 res_scale: float) -> torch.Tensor:
+    """The op's CPU implementation: the plain version."""
+    return resblock_reference(x, *unpack_resblock(w1, b1, w2, b2), res_scale)
+
+
+@_resblock_op.register_kernel("cuda")
+def _resblock_cuda(x, w1, b1, w2, b2, res_scale):
+    """The op's CUDA implementation: one launch of the kernel, counted in
+    ``fused_resblock.launches``."""
     _check(x, w1, b1, w2, b2)
     bsz, h, w, c = x.shape
     sched = resblock_schedule(bsz, h, w, _max_clusters(c, x.device))
@@ -194,7 +215,11 @@ def fused_resblock(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     return out
 
 
-fused_resblock.launches = 0
+@_resblock_op.register_fake
+def _resblock_fake(x, w1, b1, w2, b2, res_scale):
+    """Shape and dtype of the output, for ``torch.export`` and other
+    tracers: the input's."""
+    return torch.empty_like(x)
 
 
 class FusedResblock(torch.autograd.Function):

@@ -17,9 +17,12 @@ does that once, when the weights are loaded, and
 :func:`upsampler_schedule` is the kernel's tile list, computed here so
 that the CPU tests can check it.
 
-:func:`fused_upsampler_stage` launches the kernel for a CUDA tensor and
-runs :func:`upsampler_stage_reference`, the plain PyTorch version, for a
-CPU tensor.  ``fused_upsampler_stage.launches`` counts kernel launches.
+:func:`fused_upsampler_stage` calls the custom op
+``pesr::fused_upsampler_stage`` (``torch.library``), which launches the
+kernel for a CUDA tensor and runs :func:`upsampler_stage_reference`, the
+plain PyTorch version, for a CPU tensor (its fake implementation lets
+``torch.export`` trace through it).  ``fused_upsampler_stage.launches``
+counts kernel launches.
 :func:`fused_upsampler_stage_train` is the differentiable form training
 uses: the kernel forward on weights packed per call, a backward
 recomputed through the plain version.
@@ -150,13 +153,31 @@ def fused_upsampler_stage(x: torch.Tensor, wp: torch.Tensor,
                           bp: torch.Tensor) -> torch.Tensor:
     """One x2 stage on the packed weights of :func:`pack_upsampler_stage`.
 
-    CUDA tensor: the hand-written kernel (bf16 x); raises on anything it
-    does not take.  CPU tensor: :func:`upsampler_stage_reference`."""
-    if x.device.type == "cpu":
-        return upsampler_stage_reference(x, *unpack_upsampler_stage(wp, bp))
-    if x.device.type != "cuda":
+    Calls the custom op ``pesr::fused_upsampler_stage``: on a CUDA tensor
+    the hand-written kernel (bf16 x; raises on anything it does not
+    take), on a CPU tensor :func:`upsampler_stage_reference`; any other
+    device raises."""
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_upsampler_stage: unsupported device "
                          f"{x.device}")
+    return torch.ops.pesr.fused_upsampler_stage(x, wp, bp)
+
+
+fused_upsampler_stage.launches = 0
+
+
+@torch.library.custom_op("pesr::fused_upsampler_stage", mutates_args=(),
+                         device_types="cpu")
+def _upsampler_op(x: torch.Tensor, wp: torch.Tensor,
+                  bp: torch.Tensor) -> torch.Tensor:
+    """The op's CPU implementation: the plain version."""
+    return upsampler_stage_reference(x, *unpack_upsampler_stage(wp, bp))
+
+
+@_upsampler_op.register_kernel("cuda")
+def _upsampler_cuda(x, wp, bp):
+    """The op's CUDA implementation: one launch of the kernel, counted in
+    ``fused_upsampler_stage.launches``."""
     if x.dim() != 4:
         raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
     bsz, h, w, c = x.shape
@@ -191,7 +212,11 @@ def fused_upsampler_stage(x: torch.Tensor, wp: torch.Tensor,
     return out
 
 
-fused_upsampler_stage.launches = 0
+@_upsampler_op.register_fake
+def _upsampler_fake(x, wp, bp):
+    """Shape and dtype of the output: [B, 2H, 2W, C] in x.dtype."""
+    bsz, h, w, c = x.shape
+    return x.new_empty((bsz, 2 * h, 2 * w, c))
 
 
 class FusedUpsamplerStage(torch.autograd.Function):

@@ -25,17 +25,21 @@ edge-replicated context on every border, image edges included, runs the
 tiles of all images in batches of a fixed size and stitches the cores on
 the host.
 
-Not ported (yet): the multi-device mesh modes.
+On a ``pesr_torch.parallel`` mesh the batch engine splits the image
+batch (``mesh_axis="batch"``) or each image's tile positions
+(``"tiles"``) over the processes, as the JAX engine splits them over
+devices (see :class:`BatchTiledUpscaler`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from pesr_torch import parallel
 from pesr_torch.data.augment import denormalize_to_uint8, normalize_uint8
 from pesr_torch.utils.device import resolve_device
 
@@ -107,6 +111,32 @@ def _edge_pad_capped(x: torch.Tensor, pads: Tuple[int, int, int, int],
     return x
 
 
+def assemble_canvas(cores: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
+    """[nh * nw, B, TH, TW, 3] cores, row-major positions -> the
+    [B, nh * TH, nw * TW, 3] canvas."""
+    _, bsz, th, tw, c = cores.shape
+    return (cores.reshape(nh, nw, bsz, th, tw, c)
+            .permute(2, 0, 3, 1, 4, 5).reshape(bsz, nh * th, nw * tw, c))
+
+
+def spatial_positions(mesh, n_tiles: int) -> torch.Tensor:
+    """This rank's share of ``n_tiles`` tile positions in spatial mode:
+    ``ceil(n_tiles / P)`` contiguous ones from ``rank * ceil(n_tiles /
+    P)``, those past the last position clamped to it (their cores are
+    dropped after the gather), on the rank's device."""
+    per = -(-n_tiles // mesh.size)
+    pos = torch.arange(mesh.rank * per, (mesh.rank + 1) * per)
+    return pos.clamp_(max=n_tiles - 1).to(mesh.device)
+
+
+def gather_canvas(mesh, cores: torch.Tensor, nh: int, nw: int
+                  ) -> torch.Tensor:
+    """Every rank's share of the cores (:func:`spatial_positions`)
+    gathered and assembled into the whole canvas, on every rank."""
+    cores = parallel.all_gather_batch(mesh, cores)
+    return assemble_canvas(cores[:nh * nw], nh, nw)
+
+
 def _as_device_batch(imgs_u8, device: torch.device, ndim: int) -> torch.Tensor:
     t = imgs_u8 if isinstance(imgs_u8, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(imgs_u8))
@@ -174,7 +204,29 @@ class BatchTiledUpscaler:
     batch (a ``Generator`` or a ``KernelApply``).  ``tile_size``: int
     (square tiles), (th, tw) tuple, or "auto" -- the rectangular tile
     splitting each image into the fewest near-equal parts whose input
-    area stays under the budget, minimising halo + grid waste."""
+    area stays under the budget, minimising halo + grid waste.
+
+    ``mesh`` (``pesr_torch.parallel.Mesh``, one process per device) and
+    ``mesh_axis`` pick the multi-device mode; every rank calls the engine
+    with the same (replicated) batch and gets the whole canvas:
+
+    * ``"batch"``: data parallel; each rank upscales its contiguous block
+      of the batch (a batch that P does not divide is padded by repeating
+      its last image), and an all-gather assembles the canvases.  The
+      auto tile chooser sees the per-rank batch.
+    * ``"tiles"``: spatial; every rank cuts the whole tile stack from the
+      input, the T tile positions are split into P contiguous shares of
+      ``ceil(T / P)`` (the last share padded with copies of the last
+      position, whose output is dropped), each rank runs its share, and
+      an all-gather of the cores assembles the canvas on every rank.  The
+      auto chooser counts ``ceil(T / P)`` positions per rank.
+
+    Each position runs ``apply_fn`` once on the image batch, in every
+    mode, so a spatial canvas is bitwise the single-process engine's at
+    the same geometry, and a batch-mode rank's images are bitwise the
+    single-process engine's on that block (on the card the whole batch
+    through one engine may differ in the last bits: the kernels'
+    schedules and cuDNN's choices depend on the batch)."""
 
     # "auto" LR-pixel budget for one forward, summed over the image batch:
     # at most this many LR pixels (halo included) go through the
@@ -193,7 +245,13 @@ class BatchTiledUpscaler:
     _AUTO_PIXEL_BUDGET = 500_000
 
     def __init__(self, apply_fn: Callable, scale: int, tile_size=128,
-                 overlap: int = 8, device="cuda") -> None:
+                 overlap: int = 8, device="cuda", mesh=None,
+                 mesh_axis: str = "batch") -> None:
+        if mesh_axis not in ("batch", "tiles"):
+            raise ValueError(f"mesh_axis must be 'batch' or 'tiles', "
+                             f"got {mesh_axis!r}")
+        if mesh_axis == "tiles" and mesh is None:
+            raise ValueError("mesh_axis='tiles' requires a mesh")
         if tile_size != "auto":
             th, tw = (tile_size if isinstance(tile_size, tuple)
                       else (tile_size, tile_size))
@@ -204,11 +262,22 @@ class BatchTiledUpscaler:
             raise ValueError(f"overlap must be >= 0, got {overlap}")
         self.scale, self.tile, self.ov = scale, tile_size, overlap
         self.min_halo = required_min_halo(apply_fn)
-        self.device = resolve_device(device)
+        self.mesh, self.mesh_axis = mesh, mesh_axis
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         self._apply_fn = apply_fn
+
+    def _ranks(self, axis: str) -> int:
+        """P when the engine splits ``axis`` over a mesh, else 1."""
+        return (self.mesh.size if self.mesh is not None
+                and self.mesh_axis == axis else 1)
 
     def _tile_hw(self, h: int, w: int, b: int = 8) -> Tuple[int, int]:
         if self.tile == "auto":
+            # Spatial mode: the budget covers a rank's ceil(T / P) tiles
+            # of the batch, and the padded grid's positions count as
+            # computed (JAX's chooser).
+            ndev = self._ranks("tiles")
             max_area = max(self._AUTO_PIXEL_BUDGET // max(b, 1), 136 * 96)
             best = None
             for nh in range(1, 17):
@@ -218,9 +287,16 @@ class BatchTiledUpscaler:
                     # single-tile dims carry only the min_halo floor
                     area_in = ((th + 2 * self._ov_for(nh))
                                * (tw + 2 * self._ov_for(nw)))
-                    if area_in > max_area:
-                        continue
-                    waste = nh * nw * area_in  # total input px
+                    if ndev > 1:
+                        per_dev = math.ceil(nh * nw / ndev)
+                        if (area_in * per_dev * max(b, 1)
+                                > self._AUTO_PIXEL_BUDGET):
+                            continue
+                        waste = per_dev * ndev * area_in
+                    else:
+                        if area_in > max_area:
+                            continue
+                        waste = nh * nw * area_in  # total input px
                     if best is None or waste < best[0]:
                         best = (waste, th, tw)
             if best is None:
@@ -246,8 +322,9 @@ class BatchTiledUpscaler:
                 else self.min_halo)
 
     def grid(self, b: int, h: int, w: int) -> Tuple[int, int, int, int]:
-        """``(nh, nw, th, tw)`` for a batch of ``b`` images of h x w."""
-        th, tw = self._tile_hw(h, w, b)
+        """``(nh, nw, th, tw)`` for a batch of ``b`` images of h x w (the
+        chooser sees a batch-mode rank's ``ceil(b / P)``)."""
+        th, tw = self._tile_hw(h, w, -(-b // self._ranks("batch")))
         # Clamp to the image: an oversized fixed tile would replicate-fill
         # the grid remainder, so SAME convs would see replicated context
         # at the true image border and the single-tile zero-pad exactness
@@ -255,36 +332,76 @@ class BatchTiledUpscaler:
         th, tw = min(th, h), min(tw, w)
         return math.ceil(h / th), math.ceil(w / tw), th, tw
 
+    def _build(self, b: int, h: int, w: int, float_out: bool = False):
+        """``(run, (nh, nw, th, tw))`` for images of h x w, the grid
+        chosen for a batch of ``b``.  ``run(imgs_u8)``: [B, h, w, 3]
+        uint8 on the device (any B) -> the padded canvas [B, nh * th * s,
+        nw * tw * s, 3], each position's core written into it;
+        ``run(imgs_u8, pos)``, ``pos`` a 1-D index tensor into the
+        ``nh * nw`` positions (row-major, spatial mode) -> their cores
+        ``[len(pos), B, th * s, tw * s, 3]``.  uint8, or float32 on the
+        [0, 255] scale with ``float_out``.  The uint8 input is
+        replicate-padded and cut into tiles (edge padding and slicing
+        commute with the normalisation), then each position runs the
+        apply once on the image batch."""
+        s = self.scale
+        nh, nw, th, tw = self.grid(b, h, w)
+        ov_h, ov_w = self._ov_for(nh), self._ov_for(nw)
+        tile_fn, use_u8 = select_uint8_apply(self._apply_fn, float_out)
+
+        def core(tile: torch.Tensor) -> torch.Tensor:
+            out = tile_fn(normalize_uint8(tile))[
+                :, ov_h * s:(ov_h + th) * s, ov_w * s:(ov_w + tw) * s]
+            return (out if use_u8 else _to_255(out) if float_out
+                    else denormalize_to_uint8(out))
+
+        def run(imgs_u8: torch.Tensor,
+                pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+            x = _edge_pad_capped(imgs_u8, (ov_h, nh * th - h + ov_h,
+                                           ov_w, nw * tw - w + ov_w))
+            cuts = [x[:, i * th:i * th + th + 2 * ov_h,
+                      j * tw:j * tw + tw + 2 * ov_w]
+                    for i in range(nh) for j in range(nw)]
+            if pos is not None:
+                # a tensor (an input of the exported spatial program), so
+                # its tiles are selected on the device
+                tiles = torch.stack(cuts).index_select(0, pos)
+                return torch.stack([core(tiles[k])
+                                    for k in range(tiles.shape[0])])
+            canvas = None
+            for k, tile in enumerate(cuts):
+                out = core(tile)
+                if canvas is None:
+                    canvas = out.new_empty((out.shape[0], nh * th * s,
+                                            nw * tw * s, 3))
+                i, j = divmod(k, nw)
+                canvas[:, i * th * s:(i + 1) * th * s,
+                       j * tw * s:(j + 1) * tw * s] = out
+            return canvas
+
+        return run, (nh, nw, th, tw)
+
     @torch.no_grad()
     def upscale_batch_device(self, imgs_u8,
                              float_out: bool = False) -> torch.Tensor:
         """[B, H, W, 3] uint8 (numpy or tensor) -> padded-canvas uint8
         tensor on the device (crop to H*s x W*s for the true image); with
         ``float_out`` the canvas is unquantised float32 on the [0, 255]
-        scale (the self-ensemble's branches)."""
+        scale (the self-ensemble's branches).  On a mesh, every rank
+        passes the whole batch and gets the whole canvas."""
         imgs = _as_device_batch(imgs_u8, self.device, 4)
         bsz, h, w = imgs.shape[:3]
-        s = self.scale
-        nh, nw, th, tw = self.grid(bsz, h, w)
-        ov_h, ov_w = self._ov_for(nh), self._ov_for(nw)
-        tile_fn, use_u8 = select_uint8_apply(self._apply_fn, float_out)
-        x = _edge_pad_capped(normalize_uint8(imgs),
-                             (ov_h, nh * th - h + ov_h,
-                              ov_w, nw * tw - w + ov_w))
-        canvas = torch.zeros((bsz, nh * th * s, nw * tw * s, 3),
-                             dtype=torch.float32 if float_out else torch.uint8,
-                             device=self.device)
-        for i in range(nh):
-            for j in range(nw):
-                tiles = x[:, i * th:i * th + th + 2 * ov_h,
-                          j * tw:j * tw + tw + 2 * ov_w]
-                core = tile_fn(tiles)[:, ov_h * s:(ov_h + th) * s,
-                                      ov_w * s:(ov_w + tw) * s]
-                canvas[:, i * th * s:(i + 1) * th * s,
-                       j * tw * s:(j + 1) * tw * s] = (
-                    core if use_u8 else _to_255(core) if float_out
-                    else denormalize_to_uint8(core))
-        return canvas
+        run, (nh, nw, _, _) = self._build(bsz, h, w, float_out)
+        if self._ranks("tiles") > 1:
+            return gather_canvas(self.mesh, run(
+                imgs, spatial_positions(self.mesh, nh * nw)), nh, nw)
+        p = self._ranks("batch")
+        if p > 1:
+            pad = -bsz % p
+            if pad:
+                imgs = torch.cat([imgs, imgs[-1:].expand(pad, -1, -1, -1)])
+            imgs = imgs[parallel.batch_sharding(self.mesh, bsz + pad)]
+        return parallel.all_gather_batch(self.mesh, run(imgs))[:bsz]
 
     @torch.no_grad()
     def upscale_batch_se_device(self, imgs_u8) -> torch.Tensor:

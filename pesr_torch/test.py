@@ -25,6 +25,14 @@ path below N dB.  ``--compute_dtype float32`` runs plain f32 convs with
 TF32 off (no hand-written kernel).  The summary names the precision path
 that served, as JAX's label does (``int8-w8a8``, ``folded-bfloat16``,
 ...).
+
+``--mesh_shape N --mesh_axis batch|tiles`` (one process per device, the
+group brought up by ``--distributed``) splits each tiled batch, or each
+image's tile positions, over N processes; every rank gets every output
+and rank 0 writes the PNGs.  ``--export_artifact PATH`` writes the tiled
+engine as a serving artifact (``pesr_torch/serving.py``) for the first
+image's shape at ``--infer_batch`` and exits; it refuses whole-image
+mode, the self-ensemble and a batch-DP mesh, as JAX's ``test.py`` does.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import time
 
 import torch
 
+from pesr_torch import parallel
 from pesr_torch.config import Opts, opts_from_args
 from pesr_torch.convert import load_generator_pth, state_dict_from_torch
 from pesr_torch.data.datasets import host_bicubic_resize, load_eval_set
@@ -149,9 +158,25 @@ def build_apply(opts: Opts, gen: Generator, lrs) -> tuple:
 def run(argv=None) -> dict:
     """The whole flow of :func:`main`; returns its summary (mean PSNR /
     SSIM / bicubic PSNR, MP/s, image and generator-forward counts, the
-    precision path and the int8 guard's report)."""
+    precision path and the int8 guard's report), or with
+    ``--export_artifact`` the artifact's metadata and precision path."""
     opts = opts_from_args(argv)
-    device = resolve_device(opts.device)
+    if opts.export_artifact and (opts.tile_size == 0 or opts.self_ensemble
+                                 or (opts.mesh_shape
+                                     and opts.mesh_axis != "tiles")):
+        # The artifact is the device-resident tiled program; the
+        # self-ensemble composes eight of them on the host side, and a
+        # batch-DP engine is better served as hermetic single-device
+        # replicas (load the artifact on every device).
+        raise SystemExit("--export_artifact requires tiled mode "
+                         "(--tile_size != 0) without --self_ensemble or "
+                         "batch-DP --mesh_shape (spatial --mesh_axis tiles "
+                         "exports)")
+    if opts.distributed:
+        parallel.initialize_distributed(required=True, device=opts.device)
+    mesh = (parallel.make_mesh(int(opts.mesh_shape), opts.device)
+            if opts.mesh_shape else None)
+    device = mesh.device if mesh is not None else resolve_device(opts.device)
     gen = build_generator(opts, device)
     samples = load_eval_set(opts)
     lrs = [s.lr for s in samples]
@@ -164,8 +189,25 @@ def run(argv=None) -> dict:
         print("whole-image mode (no tiling)"
               + (" + x8 self-ensemble" if se else ""))
     else:
-        engine = BatchTiledUpscaler(apply_fn, opts.scale, opts.tile_size,
-                                    opts.tile_overlap, device=device)
+        if mesh is not None:
+            print(f"inference mesh: {mesh.size} process(es), "
+                  f"{opts.mesh_axis}-sharded; rank {mesh.rank} on {device}")
+        engine = BatchTiledUpscaler(
+            apply_fn, opts.scale, opts.tile_size, opts.tile_overlap,
+            device=device, mesh=mesh,
+            mesh_axis=opts.mesh_axis if mesh is not None else "batch")
+        if opts.export_artifact:
+            from pesr_torch.serving import export_upscaler
+            b = min(opts.infer_batch, len(lrs)) or 1
+            h, w = lrs[0].shape[:2]
+            meta = export_upscaler(engine, b, h, w, opts.export_artifact,
+                                   precision_path=precision)
+            print(f"exported serving artifact to {opts.export_artifact}: "
+                  f"input {meta['input_shape']}, x{meta['scale']}, "
+                  f"{meta['precision_path']}, platforms "
+                  f"{meta['platforms']}")
+            return {"artifact": meta, "precision": precision,
+                    "forwards": apply_fn.forwards}
         engine.warmup_many(lrs, opts.infer_batch, se=se)
         run_all = lambda: engine.upscale_many(  # noqa: E731
             lrs, opts.infer_batch, se=se)
@@ -181,7 +223,8 @@ def run(argv=None) -> dict:
     psnr_m, ssim_m, bicubic_m = AverageMeter(), AverageMeter(), AverageMeter()
     total_mp = 0.0
     for s, sr in zip(samples, srs):
-        imwrite_uint8(os.path.join(out_dir, f"{s.name}.png"), sr)
+        if parallel.is_primary(mesh):
+            imwrite_uint8(os.path.join(out_dir, f"{s.name}.png"), sr)
         total_mp += sr.shape[0] * sr.shape[1] / 1e6
         if s.hr is not None:
             psnr = calc_psnr(sr, s.hr, crop_border=opts.scale)
@@ -214,7 +257,11 @@ def run(argv=None) -> dict:
 
 
 def main(argv=None) -> int:
-    run(argv)
+    try:
+        run(argv)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     return 0
 
 

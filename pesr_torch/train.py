@@ -9,7 +9,12 @@
         --valid_dataset synthetic --check_point /tmp/c
 
 Prints the JSONL scalars as they are logged and a last ``[done] {...}``
-summary line.
+summary line.  Data parallel on N processes, one device each:
+
+    torchrun --nproc_per_node 2 -m pesr_torch.train --distributed \
+        --mesh_shape 2 ...
+    PESR_COORDINATOR=host:port PESR_NUM_PROCESSES=2 PESR_PROCESS_ID=r \
+        python -m pesr_torch.train --distributed --mesh_shape 2 ...
 """
 
 from __future__ import annotations
@@ -17,12 +22,24 @@ from __future__ import annotations
 import json
 import sys
 
+import torch.distributed as dist
+
+from pesr_torch import parallel
 from pesr_torch.config import opts_from_args
 from pesr_torch.training.loop import run_training
 
 
 def main(argv=None) -> int:
-    summary = run_training(opts_from_args(argv, mode="train"))
+    opts = opts_from_args(argv, mode="train")
+    if opts.distributed:
+        parallel.initialize_distributed(required=True, device=opts.device)
+        print(f"distributed: process {dist.get_rank()} of "
+              f"{dist.get_world_size()} ({dist.get_backend()})")
+    try:
+        summary = run_training(opts)
+    finally:
+        if opts.distributed:
+            dist.destroy_process_group()
     print("[done] " + json.dumps({k: round(v, 4)
                                   for k, v in summary.items()}))
     return 0

@@ -19,7 +19,11 @@ A snapshot is a directory, ``<check_point>/step_<K>/`` or
   gradient penalty's generator.
 
 A snapshot is written into a temporary directory and renamed into
-place, so an interrupted save leaves the previous one intact.
+place, so an interrupted save leaves the previous one intact.  On a
+mesh of several processes (``state.mesh``) rank 0 writes and every rank
+then waits at a barrier, so no rank reads a snapshot before it is
+there; every rank must call the save (a save on rank 0 alone would
+leave the others waiting forever).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from pesr_torch import parallel
 from pesr_torch.convert import load_discriminator_pth
 from pesr_torch.training.state import TrainState
 
@@ -58,6 +63,14 @@ def latest_step_dir(ckpt_dir: str) -> Optional[str]:
 
 def _save(path: str, state: TrainState, best_psnr: Optional[float],
           extra: Optional[Dict[str, Any]]) -> str:
+    if parallel.is_primary(state.mesh):
+        _write(path, state, best_psnr, extra)
+    parallel.barrier(state.mesh)
+    return path
+
+
+def _write(path: str, state: TrainState, best_psnr: Optional[float],
+           extra: Optional[Dict[str, Any]]) -> None:
     tmp = path + ".tmp"
     shutil.rmtree(tmp, ignore_errors=True)
     os.makedirs(tmp)
@@ -76,7 +89,6 @@ def _save(path: str, state: TrainState, best_psnr: Optional[float],
     torch.save(ts, os.path.join(tmp, TRAIN_STATE))
     shutil.rmtree(path, ignore_errors=True)
     os.replace(tmp, path)
-    return path
 
 
 def save_train_ckpt(ckpt_dir: str, state: TrainState,

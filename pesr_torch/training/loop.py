@@ -24,6 +24,18 @@ OS.  ``--profile_dir`` traces steps 5-9 after the start with
 range) into a Chrome trace ``*.pt.trace.json``; the trace is closed and
 written on every exit path.  Ctrl-C saves a snapshot of the interrupted
 step before exiting, so ``--resume`` continues from it.
+
+``--mesh_shape N`` (``--distributed`` brings the process group up)
+trains data parallel on N processes, one device each, as JAX's loop
+runs one jit over a batch-sharded global batch: every rank draws its
+``batch_size / N`` patches from its own stream, the augmentation bits
+and the penalty's ``eps`` are drawn for the global batch on every rank
+and sliced, and the steps average over the mesh (``training/steps.py``).
+Every rank runs the same self-validation on its replicated weights and
+takes the best-PSNR decision together (:func:`parallel.all_agree`);
+rank 0 alone writes the log, the snapshots and the profile, and prunes;
+an interrupt saves nothing on a mesh (the save waits for every rank at a
+barrier, which the others would not reach).
 """
 
 from __future__ import annotations
@@ -36,6 +48,7 @@ from typing import Dict, Optional
 
 import torch
 
+from pesr_torch import parallel
 from pesr_torch.data import augment, datasets
 from pesr_torch.metrics import calc_psnr, calc_ssim, perceptual_index
 from pesr_torch.models.kernel_apply import (Float32Apply, Float32TrainApply,
@@ -47,7 +60,7 @@ from pesr_torch.training.state import (COMPUTE_DTYPES, add_discriminator,
                                        create_generator_state, init_vgg,
                                        make_ema, plain_float32)
 from pesr_torch.training.steps import make_gan_step, make_pretrain_step
-from pesr_torch.utils.device import host_to_device, resolve_device
+from pesr_torch.utils.device import host_to_device
 from pesr_torch.utils.logging import AverageMeter, MetricLogger
 from pesr_torch.utils.memory import trim_host_heap
 
@@ -131,8 +144,15 @@ def run_training(opts) -> Dict[str, float]:
     if opts.phase not in ("pretrain", "train", "qat"):
         raise ValueError(f"unknown phase {opts.phase!r} (the port has "
                          f"'pretrain', 'train' and 'qat')")
-    device = resolve_device(opts.device)
+    mesh = parallel.make_mesh(int(opts.mesh_shape) if opts.mesh_shape
+                              else None, opts.device)
+    device = mesh.device
     opts = dataclasses.replace(opts, device=str(device))
+    if mesh.collective:
+        _check_mesh_batch(opts, mesh)
+        print(f"mesh: {mesh.size} processes ({mesh.backend}), rank "
+              f"{mesh.rank} on {device}, {opts.batch_size // mesh.size} of "
+              f"the global batch {opts.batch_size} per rank")
     if opts.steps_per_epoch <= 0:
         n_img = datasets.train_num_images(opts)
         spe = -(-n_img * opts.num_repeats // opts.batch_size)
@@ -158,7 +178,7 @@ def run_training(opts) -> Dict[str, float]:
     elif opts.fold_train:
         print("generator apply: folded upsampler (--fold_train)")
 
-    state = create_generator_state(opts, device)
+    state = create_generator_state(opts, device, mesh=mesh)
     if opts.pretrained_model:
         sd, at_step = ckpt.restore_generator_params(opts.pretrained_model)
         ckpt.validate_params_compat(state.generator.state_dict(), sd)
@@ -191,9 +211,12 @@ def run_training(opts) -> Dict[str, float]:
               + _converted(ts.get("param_dtype", "float32"), opts))
     if state.ema is not None:
         print(f"EMA of generator params enabled (decay {opts.ema_decay})")
+    for net in (state.generator, state.ema, state.discriminator):
+        if net is not None:
+            parallel.shard_pytree_replicated(mesh, net)
     start_step = state.step
     train_iter, lr_from_files = datasets.make_train_iterator(
-        opts, start_step=start_step)
+        opts, start_step=start_step, mesh=mesh)
     print("LR source: pre-generated files (DIV2K bicubic track)"
           if lr_from_files else
           "LR source: synthesized on the device (MATLAB-bicubic)")
@@ -207,6 +230,11 @@ def run_training(opts) -> Dict[str, float]:
         _train_epochs(opts, state, step_fn, aug, train_iter, logger,
                       summary, box)
     except KeyboardInterrupt:
+        if mesh.collective:
+            print(f"\n[interrupt] process group: skipping the interrupt save "
+                  f"(it waits for every rank); last snapshot: "
+                  f"{ckpt.latest_step_dir(opts.check_point)}")
+            raise
         path = ckpt.save_train_ckpt(
             opts.check_point, state, box["best_psnr"],
             dict(box["extra"], augment=aug.get_state()))
@@ -223,6 +251,20 @@ def run_training(opts) -> Dict[str, float]:
     summary["train_forwards"] = state.apply.forwards
     summary["eval_forwards"] = box["eval_forwards"]
     return summary
+
+
+def _check_mesh_batch(opts, mesh) -> None:
+    """The global batch splits into equal blocks, and each block into the
+    ``grad_accum`` strided microbatches, so that the ranks' microbatch i
+    together are the global microbatch i of JAX's split."""
+    if opts.batch_size % mesh.size:
+        raise ValueError(f"--batch_size {opts.batch_size} must be divisible "
+                         f"by the process count {mesh.size} (it is the "
+                         f"GLOBAL batch)")
+    if (opts.batch_size // mesh.size) % opts.grad_accum:
+        raise ValueError(f"the per-process batch "
+                         f"{opts.batch_size // mesh.size} must be divisible "
+                         f"by --grad_accum {opts.grad_accum}")
 
 
 def _converted(saved: str, opts) -> str:
@@ -290,7 +332,8 @@ def _train_epochs(opts, state, step_fn, aug, train_iter, logger, summary,
     for epoch in range(start_epoch, opts.num_epochs):
         while state.step < (epoch + 1) * opts.steps_per_epoch:
             k = state.step - start_step
-            if opts.profile_dir and k == PROFILE_STEPS[0]:
+            if (opts.profile_dir and k == PROFILE_STEPS[0]
+                    and parallel.is_primary(state.mesh)):
                 box["profiler"] = _start_profile(device)
             with (torch.profiler.record_function("train_step")
                   if box["profiler"] else contextlib.nullcontext()):
@@ -314,8 +357,9 @@ def _train_epochs(opts, state, step_fn, aug, train_iter, logger, summary,
             path = ckpt.save_train_ckpt(opts.check_point, state,
                                         box["best_psnr"], extra)
             print(f"[ckpt] saved {path}")
-            pruned = ckpt.prune_snapshots(opts.check_point,
-                                          opts.keep_snapshots)
+            pruned = (ckpt.prune_snapshots(opts.check_point,
+                                           opts.keep_snapshots)
+                      if parallel.is_primary(state.mesh) else [])
             if pruned:
                 print(f"[ckpt] pruned {len(pruned)} old snapshot(s) "
                       f"(keep_snapshots={opts.keep_snapshots})")
@@ -333,7 +377,10 @@ def _one_step(opts, state, step_fn, aug, train_iter, device):
         hr_u8 = host_to_device(torch.from_numpy(hr_u8), device)
     if lr_u8 is not None and not torch.is_tensor(lr_u8):
         lr_u8 = host_to_device(torch.from_numpy(lr_u8), device)
-    bits = augment.dihedral_bits(aug, hr_u8.shape[0], device)
+    p = state.mesh.size if state.mesh is not None else 1
+    n = hr_u8.shape[0] * p
+    bits = augment.dihedral_bits(aug, n, device,
+                                 parallel.batch_sharding(state.mesh, n))
     lr_img, hr_img = augment.prepare_train_batch(bits, hr_u8, opts.scale,
                                                  lr_u8)
     return step_fn(state, lr_img, hr_img)
@@ -370,13 +417,19 @@ def _validate(opts, state, logger, summary, box, extra) -> None:
     best checkpoint and inference use), else of the live ones, through
     the steps' forward (folded when they fold; fake-quant in QAT); the
     engine is built once and kept in ``box``.  A new best PSNR writes
-    ``best/``."""
+    ``best/``.  On a mesh every rank evaluates and the ranks agree on
+    the eval set's load and on a new best before the collective save."""
     if "eval_samples" not in box:
+        err = None
         try:
             box["eval_samples"] = datasets.load_eval_set(
                 opts, opts.valid_dataset, opts.num_valids)
         except FileNotFoundError as e:
-            print(f"[val] skipped: {e}")
+            err = e
+        if not parallel.all_agree(state.mesh, err is None):
+            box.pop("eval_samples", None)
+            print(f"[val] skipped: "
+                  f"{err or 'eval set missing on another rank'}")
             return
     gen = state.ema if state.ema is not None else state.generator
     dtype = COMPUTE_DTYPES[opts.compute_dtype]
@@ -399,7 +452,7 @@ def _validate(opts, state, logger, summary, box, extra) -> None:
     logger.log(state.step, val, prefix="val")
     summary.update(val)
     val_psnr = val.get("val_psnr", float("-inf"))
-    if val_psnr > (box["best_psnr"] or -1.0):
+    if parallel.all_agree(state.mesh, val_psnr > (box["best_psnr"] or -1.0)):
         box["best_psnr"] = val_psnr
         path = ckpt.save_best_ckpt(opts.check_point, state, val_psnr, extra)
         print(f"[ckpt] new best val_psnr={val_psnr:.2f} -> {path}")

@@ -22,11 +22,13 @@ from typing import Callable, Optional
 import torch
 
 from pesr_torch.convert import load_vgg19_pth
-from pesr_torch.models.discriminator import Discriminator
+from pesr_torch.models.discriminator import (Discriminator,
+                                             set_batch_stats_mesh)
 from pesr_torch.models.generator import Generator
 from pesr_torch.models.kernel_apply import Float32TrainApply, KernelTrainApply
 from pesr_torch.models.qat import QatApply
 from pesr_torch.models.vgg import VGG19Features
+from pesr_torch.parallel import Mesh
 
 COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 PARAM_DTYPES = COMPUTE_DTYPES
@@ -60,7 +62,9 @@ class TrainState:
     when ``--ema_decay > 0``.  The GAN phase also sets
     ``discriminator`` and ``d_optimizer`` (:func:`add_discriminator`),
     ``vgg`` when ``alpha_vgg > 0`` (:func:`init_vgg`), and ``gp_rng``, the
-    generator the step draws the gradient penalty's ``eps`` from."""
+    generator the step draws the gradient penalty's ``eps`` from.
+    ``mesh``: the data-parallel process group the step averages over
+    (None: this process alone)."""
     generator: Generator
     optimizer: torch.optim.Optimizer
     lr_at: Callable[[int], float]
@@ -71,6 +75,7 @@ class TrainState:
     d_optimizer: Optional[torch.optim.Optimizer] = None
     vgg: Optional[VGG19Features] = None
     gp_rng: Optional[torch.Generator] = None
+    mesh: Optional[Mesh] = None
 
 
 def make_ema(generator: Generator) -> Generator:
@@ -82,8 +87,8 @@ def make_ema(generator: Generator) -> Generator:
 
 
 def create_generator_state(opts, device: torch.device,
-                           generator: Optional[Generator] = None
-                           ) -> TrainState:
+                           generator: Optional[Generator] = None,
+                           mesh: Optional[Mesh] = None) -> TrainState:
     """A generator from ``opts`` (random init from ``opts.seed``, or the
     given one) with its parameters in ``opts.param_dtype`` (JAX's
     ``param_dtype``: bf16 parameters give Adam bf16 moments, as optax's
@@ -93,20 +98,22 @@ def create_generator_state(opts, device: torch.device,
     ``configure_generator_apply``), or :class:`Float32TrainApply` for
     float32 on the card (:func:`plain_float32`), or in phase ``qat`` the
     fake-quant forward, which ignores ``fold_train`` as JAX's does.  The
-    parameters and snapshots stay those of the plain generator."""
+    parameters and snapshots stay those of the plain generator.
+    ``mesh``: the data-parallel process group of the steps (the QAT
+    forward takes its activation scales over it)."""
     if generator is None:
         generator = Generator(opts.scale, opts.num_blocks, opts.num_channels,
                               opts.res_scale, device=device, seed=opts.seed)
     generator.to(PARAM_DTYPES[opts.param_dtype])
     dtype = COMPUTE_DTYPES[opts.compute_dtype]
     if opts.phase == "qat":
-        apply = QatApply(generator, dtype)
+        apply = QatApply(generator, dtype, mesh)
     elif plain_float32(opts, device):
         apply = Float32TrainApply(generator, fold=opts.fold_train)
     else:
         apply = KernelTrainApply(generator, dtype, fold=opts.fold_train)
     return TrainState(generator, _adam(generator, opts),
-                      make_lr_schedule(opts), apply)
+                      make_lr_schedule(opts), apply, mesh=mesh)
 
 
 def _adam(module: torch.nn.Module, opts) -> torch.optim.Optimizer:
@@ -120,13 +127,15 @@ def add_discriminator(state: TrainState, opts, device: torch.device,
     ``opts.seed + 1``, or the given one; SRGAN widths, dense 1024, sized
     for ``opts.hr_patch_size``, computing in ``opts.compute_dtype``, its
     parameters in ``opts.param_dtype``) with its Adam, and the penalty's
-    generator on ``device`` (seeded with ``opts.seed + 3``)."""
+    generator on ``device`` (seeded with ``opts.seed + 3``).  On a mesh
+    (``state.mesh``) D's batch statistics are the global batch's."""
     if discriminator is None:
         discriminator = Discriminator(
             opts.hr_patch_size, spectral_norm=opts.spectral_norm,
             dtype=COMPUTE_DTYPES[opts.compute_dtype], device=device,
             seed=opts.seed + 1)
     discriminator.to(PARAM_DTYPES[opts.param_dtype])
+    set_batch_stats_mesh(discriminator, state.mesh)
     state.discriminator = discriminator
     state.d_optimizer = _adam(discriminator, opts)
     state.gp_rng = torch.Generator(device=device).manual_seed(opts.seed + 3)

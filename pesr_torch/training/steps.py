@@ -11,6 +11,18 @@ step for a per-sample mean loss, at ~1/A of the activation memory.
 GAN step: the discriminator's update, then the generator's against the
 updated discriminator, in JAX's order (see :func:`make_gan_step`).
 
+On a mesh of P processes (``state.mesh``, data parallel) each rank
+steps on its contiguous block of the global batch and the step computes
+JAX's function of the global batch (one jit over a batch-sharded
+array): after the backward every gradient is replaced by its mean over
+the ranks (one all-reduce), every reduction that couples samples (the
+relativistic means, the discriminator's batch statistics) is taken over
+the global batch by a differentiable all-reduce (``parallel.sum_all``,
+whose backward sums every rank's gradient), each rank backpropagates
+its block's share of the loss, and the metrics are averaged over the
+ranks.  Random draws (the penalty's ``eps``) are made for the global
+batch on every rank from the same generator and sliced.
+
 The metrics stay on the device; the loop reads them at its log points,
 so a step does not wait for the device.
 """
@@ -22,7 +34,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
-from pesr_torch import losses
+from pesr_torch import losses, parallel
 from pesr_torch.training.state import TrainState
 from pesr_torch.utils.device import full_f32
 
@@ -69,6 +81,24 @@ def _accumulate(loss_fn: Callable, split_xs: Sequence[List[torch.Tensor]],
     return [t / accum for t in total]
 
 
+def _sync_grads(state: TrainState, module: torch.nn.Module) -> None:
+    """Each gradient of ``module`` replaced by its mean over the mesh."""
+    parallel.all_reduce_mean_(
+        state.mesh, [p.grad for p in module.parameters()
+                     if p.grad is not None])
+
+
+def _mesh_mean(state: TrainState, values: List[torch.Tensor]
+               ) -> List[torch.Tensor]:
+    """Per-rank scalar metrics -> their means over the mesh (the global
+    batch's, every block being one size)."""
+    if state.mesh is None or not state.mesh.collective:
+        return values
+    flat = torch.stack([v.float() for v in values])
+    parallel.all_reduce_mean_(state.mesh, [flat])
+    return list(flat.unbind())
+
+
 def _precision(opts, x: torch.Tensor):
     """The step's numerics scope: float32 steps run forward and backward
     with TF32 off on the card (:func:`full_f32`), so cuDNN's backward
@@ -98,6 +128,8 @@ def make_pretrain_step(opts) -> Callable[[TrainState, torch.Tensor,
                 lambda lr_mb, hr_mb: loss_fn(state, lr_mb, hr_mb),
                 (_microbatches(lr_img, accum), _microbatches(hr_img, accum)),
                 accum)
+        _sync_grads(state, state.generator)
+        l1, mse = _mesh_mean(state, [l1, mse])
         _set_lr(state.optimizer, state.lr_at(state.step))
         state.optimizer.step()
         state.step += 1
@@ -131,25 +163,25 @@ def make_gan_step(opts) -> Callable[..., Metrics]:
     gradient, and then the G update accumulates over them against the
     updated D: per-microbatch batch statistics and Ra means, as in JAX.
 
-    ``eps`` [B, 1, 1, 1] are the penalty's interpolation weights
-    (microbatch i takes ``eps[i::A]``); None draws them uniform from
-    ``state.gp_rng``.  Metrics (on the device): ``d_loss``, ``g_loss``,
+    ``eps`` [B, 1, 1, 1] are the penalty's interpolation weights of this
+    rank's block (microbatch i takes ``eps[i::A]``); None draws them
+    uniform from ``state.gp_rng`` for the global batch and takes the
+    block.  Metrics (on the device): ``d_loss``, ``g_loss``,
     ``g_gan``, ``tv``, ``vgg`` and ``l1`` when on, ``psnr``."""
-    fns = losses.gan_losses(opts.gan_type,
-                            opts.fl_gamma if opts.focal_loss else 0.0)
+    gamma = opts.fl_gamma if opts.focal_loss else 0.0
     accum = max(1, int(opts.grad_accum))
     ema_decay = float(opts.ema_decay)
     use_vgg, use_l1 = opts.alpha_vgg > 0.0, opts.alpha_l1 > 0.0
     names = (["g_loss", "g_gan", "tv"] + ["vgg"] * use_vgg + ["l1"] * use_l1
              + ["mse"])
 
-    def d_loss_fn(d, sr, hr_mb, eps_mb):
+    def d_loss_fn(fns, d, sr, hr_mb, eps_mb):
         loss = fns["d"](d(hr_mb), d(sr))
         if opts.use_gp:
             loss = loss + 10.0 * losses.gradient_penalty(d, hr_mb, sr, eps_mb)
         return (loss,)
 
-    def g_loss_fn(state, sr, hr_mb):
+    def g_loss_fn(fns, state, sr, hr_mb):
         d = state.discriminator
         with torch.no_grad():
             dr = d(hr_mb)
@@ -174,29 +206,35 @@ def make_gan_step(opts) -> Callable[..., Metrics]:
 
     def _step(state, lr_img, hr_img, eps):
         d = state.discriminator
+        mesh = state.mesh
+        fns = losses.gan_losses(opts.gan_type, gamma,
+                                lambda t: parallel.batch_mean(mesh, t))
         lr = state.lr_at(state.step)
         state.optimizer.zero_grad(set_to_none=True)
         state.d_optimizer.zero_grad(set_to_none=True)
         lrs, hrs = _microbatches(lr_img, accum), _microbatches(hr_img, accum)
         if opts.use_gp and eps is None:
-            eps = torch.rand((hr_img.shape[0], 1, 1, 1),
+            p = mesh.size if mesh is not None else 1
+            eps = torch.rand((hr_img.shape[0] * p, 1, 1, 1),
                              generator=state.gp_rng, device=hr_img.device)
+            eps = eps[parallel.batch_sharding(mesh, eps.shape[0])]
         epss = (_microbatches(eps, accum) if opts.use_gp
                 else [None] * accum)
 
         if accum == 1:
             sr = state.apply(lr_img)
             (d_loss,) = _accumulate(
-                lambda hr_mb, eps_mb: d_loss_fn(d, sr.detach(), hr_mb,
+                lambda hr_mb, eps_mb: d_loss_fn(fns, d, sr.detach(), hr_mb,
                                                 eps_mb),
                 (hrs, epss), 1)
         else:
             def d_mb(lr_mb, hr_mb, eps_mb):
                 with torch.no_grad():
                     sr_mb = state.apply(lr_mb)
-                return d_loss_fn(d, sr_mb, hr_mb, eps_mb)
+                return d_loss_fn(fns, d, sr_mb, hr_mb, eps_mb)
 
             (d_loss,) = _accumulate(d_mb, (lrs, hrs, epss), accum)
+        _sync_grads(state, d)
         _set_lr(state.d_optimizer, lr)
         state.d_optimizer.step()
 
@@ -204,15 +242,17 @@ def make_gan_step(opts) -> Callable[..., Metrics]:
         try:
             if accum == 1:
                 aux = _accumulate(
-                    lambda sr_mb, hr_mb: g_loss_fn(state, sr_mb, hr_mb),
+                    lambda sr_mb, hr_mb: g_loss_fn(fns, state, sr_mb, hr_mb),
                     ([sr], hrs), 1)
             else:
                 aux = _accumulate(
-                    lambda lr_mb, hr_mb: g_loss_fn(state, state.apply(lr_mb),
-                                                   hr_mb),
+                    lambda lr_mb, hr_mb: g_loss_fn(fns, state,
+                                                   state.apply(lr_mb), hr_mb),
                     (lrs, hrs), accum)
         finally:
             d.requires_grad_(True)
+        _sync_grads(state, state.generator)
+        d_loss, *aux = _mesh_mean(state, [d_loss, *aux])
         _set_lr(state.optimizer, lr)
         state.optimizer.step()
         state.step += 1

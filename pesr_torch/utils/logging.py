@@ -8,6 +8,8 @@ import os
 import time
 from typing import Dict, Optional
 
+from pesr_torch.parallel import is_primary
+
 
 class AverageMeter:
     """Running average of a scalar stream."""
@@ -30,11 +32,15 @@ class AverageMeter:
 
 class MetricLogger:
     """Scalar logger: one JSON record per call appended to
-    ``<log_dir>/<name>.jsonl`` (when ``log_dir``), mirrored to stdout."""
+    ``<log_dir>/<name>.jsonl`` (when ``log_dir``), mirrored to stdout.
+
+    In a process group only rank 0 writes the file: the scalars are the
+    same on every rank, and every rank appending to one file on shared
+    storage would interleave them.  stdout stays per process."""
 
     def __init__(self, log_dir: Optional[str], name: str = "train") -> None:
         self._fh = None
-        if log_dir:
+        if log_dir and is_primary():
             os.makedirs(log_dir, exist_ok=True)
             self._fh = open(os.path.join(log_dir, f"{name}.jsonl"), "a",
                             buffering=1)

@@ -46,9 +46,9 @@ def test_cli_without_device_raises_when_cuda_is_missing(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--param_dtype", "float32"],
                                   ["--use_pallas"],
-                                  ["--mesh_axis", "tiles"],
-                                  ["--mesh_shape", "4"],
-                                  ["--export_artifact", "x"]])
+                                  ["--remat"],
+                                  ["--grad_accum", "2"],
+                                  ["--unroll_body"]])
 def test_cli_rejects_flags_the_port_lacks(flag):
     with pytest.raises(SystemExit):
         cli.main(_TINY + ["--device", "cpu"] + flag)
@@ -98,7 +98,9 @@ def test_port_imports_nothing_of_jax_or_pesr_tpu():
             "pesr_torch/models/fold.py", "pesr_torch/data/natural.py",
             "pesr_torch/data/device_synth.py",
             "pesr_torch/data/native/__init__.py",
-            "pesr_torch/utils/memory.py"} <= scanned
+            "pesr_torch/utils/memory.py", "pesr_torch/serving.py",
+            "pesr_torch/parallel/__init__.py",
+            "pesr_torch/parallel/mesh.py"} <= scanned
     bad = [(os.path.relpath(f, _REPO), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                   "pesr_tpu")]

@@ -445,7 +445,8 @@ def test_cli_without_device_raises_when_cuda_is_missing(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     ["--quant", "int8"], ["--use_pallas"], ["--remat"], ["--unroll_body"],
-    ["--mesh_shape", "4"], ["--distributed"], ["--export_artifact", "a"]])
+    ["--mesh_axis", "tiles"], ["--test_dataset", "Set5"],
+    ["--export_artifact", "a"]])
 def test_train_cli_rejects_flags_the_port_lacks(flag):
     with pytest.raises(SystemExit):
         opts_from_args(_TINY_CLI + flag, mode="train")

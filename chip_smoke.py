@@ -13,7 +13,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               card's name and power limit.
 2. kernels -- each kernel against its plain PyTorch version (f32, TF32
               off, same bf16-rounded inputs): ragged shapes at the edges
-              of the kernels' decompositions, C = 64, 128, 256, then the
+              of the kernels' decompositions and narrow widths 1-129 at
+              batches 1, 3, 16 (the resblock's flat mode, the upsampler's
+              paired tiles), C = 64, 128, 256, then the
               shapes the main path gives it (C = 256, the tile batch the
               engine's auto chooser picks for two 510 x 336 LR images).
               Times (CUDA events; median, min and max of repetitions) of
@@ -26,12 +28,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               plain f32 ``Generator`` on the same tile batch.
 4. train   -- the L1 pretrain path at the flagship recipe (32 x 256, x4,
               batch 16, LR patch 48): each kernel's differentiable form
-              (kernel forward, recomputed backward) against the plain
-              version's f32 autograd at the training shapes and two ragged
-              ones; kernel times at the training shapes; one pretrain
+              (kernel forward, library-conv backward) against the plain
+              version's f32 autograd at the training shapes, two ragged
+              ones and the narrow widths (C = 64, 128, 256); kernel times
+              at the training shapes, each row with its schedule, computed
+              / useful MACs, share of its bound and cuDNN's time; one pretrain
               step of the kernel path (bf16) against the plain f32
               ``Generator`` from the same weights and batch; a profile of
-              one step; then ``run_training`` on ``synthetic`` for 2
+              one step, its device time and launches, and the convolutions
+              and convolution gradients it dispatches (35 and 69: one
+              recompute per block); then ``run_training`` on ``synthetic`` for 2
               epochs with self-validation (PSNR, SSIM and PI) and
               snapshots: the loss falls, launch counts per forward, steps/s
               and HR MP/s, a finite ``val_pi``, and the best snapshot
@@ -186,12 +192,28 @@ ATOL, RTOL = 1e-2, 2.0 ** -7
 LSB_MEAN_TOL, LSB_MAX_TOL = 0.5, 8
 # Ragged (batch, H, W) at the edges of the kernels' decompositions.
 RAGGED = ((1, 5, 3), (1, 1, 1), (1, 9, 63), (2, 49, 510), (3, 5, 1426))
+# Narrow widths at the edges of the narrow-image decompositions (the
+# resblock's flat mode takes 2 <= W <= 48; the upsampler pairs CTA tiles
+# across row pairs where a row has an odd number of 64-pixel segments),
+# at batches 1, 3 and 16 in turn.
+NARROW_W = (1, 16, 17, 31, 32, 33, 47, 48, 49, 63, 64, 65, 95, 96, 97, 127,
+            128, 129)
+NARROW = tuple((b, h, w) for (b, h), w in zip(((1, 5), (3, 7), (16, 12)) * 6,
+                                              NARROW_W))
+# The same widths for the backward checks, the batch-1 shapes at the
+# training patch's 48 rows: GRAD_REL_TOL's ReLU-mask flips need pixels to
+# average over (at [1,5,1,256], 5 pixels, one flip moved dw1 by 4.3e-2 in
+# norm on the H100, with the backward's convolutions the same as autograd
+# of the plain version's).
+TRAIN_NARROW = tuple((b, h, w) for (b, h), w in zip(
+    ((1, 48), (3, 7), (16, 12)) * 6, NARROW_W))
 # The flagship training recipe (pesr_tpu/config.py): batch 16 of 48 x 48
 # LR patches; the kernels see [16, 48, 48] (body, stage 1) and
 # [16, 96, 96] (stage 2).
 TRAIN_BATCH, TRAIN_PATCH = 16, 48
-TRAIN_RAGGED = ((2, 19, 23), (3, 5, 70))
-# A kernel's backward (autograd of the plain version in bf16, recomputed)
+TRAIN_RAGGED = ((2, 19, 23), (3, 5, 70)) + TRAIN_NARROW
+# A kernel's backward (bf16 library convolution gradients, conv1
+# recomputed: on the CPU bitwise autograd of the plain version in bf16)
 # vs the plain version's f32 autograd on the same bf16-rounded inputs and
 # cotangent, per gradient tensor: ||d|| / ||ref|| <= GRAD_REL_TOL.  Each
 # gradient passes 3-4 bf16 roundings (2^-9 relative each, independent
@@ -296,7 +318,8 @@ def check_resblock(bsz, h, w, c, res_scale, seed, timing=False) -> dict:
     from pesr_torch.ops.kernels import (fused_resblock, pack_resblock,
                                         resblock_reference)
     from pesr_torch.ops.kernels.resblock import (CLUSTER, _max_clusters,
-                                                 resblock_schedule)
+                                                 resblock_schedule,
+                                                 resblock_work)
     x, (w1, b1, w2, b2) = make_inputs(
         (bsz, h, w, c), [(3, 3, c, c), (c,), (3, 3, c, c), (c,)], seed)
     packed = pack_resblock(w1.permute(3, 2, 0, 1), b1,
@@ -329,14 +352,21 @@ def check_resblock(bsz, h, w, c, res_scale, seed, timing=False) -> dict:
     res["library"] = timed_ms(library, 10, 5)
     res["ms"], res["plain_ms"], res["library_ms"] = (
         res[k]["ms"] for k in ("time", "plain", "library"))
+    res["shape"] = [bsz, h, w, c]
     px = bsz * h * w
     res["bound_ms"], res["bound_by"] = bound(
         4 * 9 * c * c * px, 2 * px * c * 2 + 2 * 9 * c * c * 2 + 2 * c * 4)
     # Weight bytes L2 serves per launch: every cluster streams both convs'
-    # weights once per conv pass (rows / 2 + 1 conv1 + rows / 2 conv2).
-    sched = resblock_schedule(bsz, h, w, _max_clusters(c, x.device))
+    # weights once per conv pass (line mode: rows / 2 + 1 conv1 + rows / 2
+    # conv2; flat mode: steps + 1 conv1 + steps conv2, steps = span / 128
+    # rounded up).
+    clusters = _max_clusters(c, x.device)
+    sched = resblock_schedule(bsz, h, w, clusters)
     res["schedule"] = sched
-    res["weight_l2_bytes"] = (sched.ctas // CLUSTER * (sched.rows + 1)
+    res["work"] = resblock_work(bsz, h, w, c, clusters)
+    passes = (2 * -(-sched.span // 128) + 1 if sched.span
+              else sched.rows + 1)
+    res["weight_l2_bytes"] = (sched.ctas // CLUSTER * passes
                               * 9 * c * c * 2)
     return res
 
@@ -348,7 +378,8 @@ def check_upsampler(bsz, h, w, c, seed, timing=False) -> dict:
                                         pack_upsampler_stage,
                                         upsampler_stage_reference)
     from pesr_torch.ops.kernels.upsampler import (_max_clusters,
-                                                  upsampler_schedule)
+                                                  upsampler_schedule,
+                                                  upsampler_work)
     x, (wt, b) = make_inputs((bsz, h, w, c), [(3, 3, c, 4 * c), (4 * c,)],
                              seed)
     wp, bp = pack_upsampler_stage(wt, b)
@@ -370,14 +401,17 @@ def check_upsampler(bsz, h, w, c, seed, timing=False) -> dict:
         lambda: F.pixel_shuffle(F.conv2d(xl, wl, bh, padding=1), 2), 10, 5)
     res["ms"], res["plain_ms"], res["library_ms"] = (
         res[k]["ms"] for k in ("time", "plain", "library"))
+    res["shape"] = [bsz, h, w, c]
     px = bsz * h * w
     res["bound_ms"], res["bound_by"] = bound(
         2 * 9 * c * 4 * c * px,
         px * c * 2 + 4 * px * c * 2 + 9 * c * 4 * c * 2 + 4 * c * 4)
     # Weight bytes L2 serves per launch: one 256-column slice (9 x C x 256
     # bf16) per cluster tile.
-    sched = upsampler_schedule(bsz, h, w, c, _max_clusters(x.device))
+    clusters = _max_clusters(x.device)
+    sched = upsampler_schedule(bsz, h, w, c, clusters)
     res["schedule"] = sched
+    res["work"] = upsampler_work(bsz, h, w, c, clusters)
     res["weight_l2_bytes"] = sched.tiles * 9 * c * 256 * 2
     return res
 
@@ -463,6 +497,7 @@ def phase_kernels(card: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     from pesr_torch.ops.kernels.resblock import resblock_schedule
+    from pesr_torch.ops.kernels.upsampler import upsampler_schedule
     print("[kernels] small ragged shapes (edges, partial tiles, all widths)")
     for c in (64, 128, 256):
         check_resblock(2, 19, 23, c, 1.0, seed=c)
@@ -484,6 +519,17 @@ def phase_kernels(card: str) -> dict:
                 check_resblock(bsz, h, w, c, rs, seed=100 * c + i)
             check_upsampler(bsz, h, w, c, seed=100 * c + 50 + i)
         check_upsampler(1, 9, 65, c, seed=100 * c + 99)
+    print("[kernels] narrow widths (the resblock's flat mode, the "
+          "upsampler's paired tiles)")
+    for bsz, h, w in NARROW:
+        print(f"  schedules of [{bsz},{h},{w}]: resblock "
+              f"{resblock_schedule(bsz, h, w)}, upsampler (C = 256) "
+              f"{upsampler_schedule(bsz, h, w, 256)}", flush=True)
+    for c in (64, 128, 256):
+        for i, (bsz, h, w) in enumerate(NARROW):
+            for rs in (0.1, 1.0):
+                check_resblock(bsz, h, w, c, rs, seed=1000 * c + i)
+            check_upsampler(bsz, h, w, c, seed=1000 * c + 50 + i)
     (b, th, tw), grid = main_path_tile_batch()
     print(f"[kernels] main-path shapes: tile batch [{b},{th},{tw}] "
           f"(grid nh,nw,th,tw = {grid}), C = {CHANNELS}, on {card}",
@@ -517,6 +563,72 @@ def print_times(rb: dict, up1: dict, up2: dict, card: str) -> None:
         gb = r["weight_l2_bytes"] / 1e9
         print(f"    {r['schedule']}: weights from L2 {gb:.2f} GB per launch "
               f"= {gb / r['ms']:.2f} TB/s at the median time", flush=True)
+
+
+def train_rows(rb: dict, up1: dict, up2: dict, card: str) -> list:
+    """The training-shape rows of the kernel table: per kernel call its
+    schedule, computed / useful conv MACs, times (median, min, max),
+    bound and share of it, and cuDNN's time."""
+    rows = []
+    for name, r in (("fused_resblock", rb),
+                    ("fused_upsampler_stage stage 1", up1),
+                    ("fused_upsampler_stage stage 2", up2)):
+        row = {"kernel": name, "shape": r["shape"],
+               "schedule": list(r["schedule"]),
+               "computed_over_useful": r["work"][0] / r["work"][1],
+               "ms": r["time"]["ms"], "min_ms": r["time"]["min"],
+               "max_ms": r["time"]["max"], "bound_ms": r["bound_ms"],
+               "share_of_bound": r["bound_ms"] / r["time"]["ms"],
+               "library_ms": r["library_ms"]}
+        print(f"  row {name} {r['shape']}: {r['schedule']}, computed / "
+              f"useful {row['computed_over_useful']:.4f}; kernel "
+              f"{row['ms']:.4f} ms [{row['min_ms']:.4f}, "
+              f"{row['max_ms']:.4f}], bound {row['bound_ms']:.4f} ms "
+              f"({100 * row['share_of_bound']:.1f}% of it), cuDNN "
+              f"{row['library_ms']:.4f} ms [{card}]", flush=True)
+        rows.append(row)
+    return rows
+
+
+def conv_op_counts(fn) -> dict:
+    """How many ``aten.convolution`` and ``aten.convolution_backward``
+    calls ``fn()`` dispatches (a TorchDispatchMode around it)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = {"convolution": 0, "convolution_backward": 0}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in self.n:
+                self.n[name] += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as mode:
+        fn()
+    return mode.n
+
+
+def step_summary(what: str, fn, prof: dict, want, card: str) -> dict:
+    """One line per training step: its device time and launches (from
+    ``prof``, the profile of one step), host time, and the convolutions
+    and convolution gradients one more step dispatches.  ``want``: the
+    (convolutions, convolution gradients) a step must dispatch (None:
+    not checked)."""
+    n = conv_op_counts(fn)
+    print(f"  {what} step: device busy {prof['busy_ms']:.3f} ms, "
+          f"{prof['launches']} device launches, host queue "
+          f"{prof['host_ms']:.2f} ms, wall {prof['step_ms']:.2f} ms; "
+          f"aten.convolution {n['convolution']}, convolution_backward "
+          f"{n['convolution_backward']} per step [{card}]", flush=True)
+    if want is not None and (n["convolution"],
+                             n["convolution_backward"]) != want:
+        fail(f"{what} step dispatched {n} convolutions and gradients, not "
+             f"{want} (library convs + one recompute per block; their "
+             f"gradients + two per block + one per x2 stage)")
+    return n
 
 
 def kernel_shares(events, group_of) -> dict:
@@ -846,14 +958,16 @@ def phase_train(card: str, workdir: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     c = CHANNELS
     print(f"[train] backward of each kernel's differentiable form at C = "
-          f"{c} (training shapes, then ragged) on {card}", flush=True)
+          f"{c} (training shapes, then ragged; the narrow widths at C = "
+          f"64, 128, 256) on {card}", flush=True)
     bt, p = TRAIN_BATCH, TRAIN_PATCH
     for kind, shape in (("resblock", (bt, p, p)), ("upsampler", (bt, p, p)),
                         ("upsampler", (bt, 2 * p, 2 * p))):
         check_backward(kind, *shape, c, seed=7)
     for i, shape in enumerate(TRAIN_RAGGED):
-        check_backward("resblock", *shape, c, seed=20 + i)
-        check_backward("upsampler", *shape, c, seed=30 + i)
+        for cc in ((64, 128, c) if shape in TRAIN_NARROW else (c,)):
+            check_backward("resblock", *shape, cc, seed=20 + i)
+            check_backward("upsampler", *shape, cc, seed=30 + i)
     torch.cuda.empty_cache()
 
     print(f"[train] kernel times at the training shapes, C = {c}",
@@ -862,6 +976,7 @@ def phase_train(card: str, workdir: str) -> dict:
     up1 = check_upsampler(bt, p, p, c, seed=12, timing=True)
     up2 = check_upsampler(bt, 2 * p, 2 * p, c, seed=13, timing=True)
     print_times(rb, up1, up2, card)
+    rows = train_rows(rb, up1, up2, card)
     torch.cuda.empty_cache()
 
     print(f"[train] one pretrain step at {BLOCKS}x{c} x{SCALE}, batch {bt}, "
@@ -917,6 +1032,9 @@ def phase_train(card: str, workdir: str) -> dict:
                              group=lambda ev: kernel_shares(
                                  ev, lambda e, k: _profile_group(k)))
     prof["host_ms"], prof["step_ms"] = sorted(host_ms)[2], sorted(wall_ms)[2]
+    prof["conv_ops"] = step_summary(
+        "pretrain", lambda: step(state_k, lr_img, hr_img), prof,
+        (3 + BLOCKS, 3 + 2 * BLOCKS + 2), card)
     del state_k
     torch.cuda.empty_cache()
 
@@ -994,7 +1112,7 @@ def phase_train(card: str, workdir: str) -> dict:
     ev.update({"fused_resblock": ev_rb, "fused_upsampler_stage": ev_up2,
                "upsampler_stage1": ev_up1})
     return {"fused_resblock": rb, "fused_upsampler_stage": up2,
-            "upsampler_stage1": up1, "launches": counts,
+            "upsampler_stage1": up1, "rows": rows, "launches": counts,
             "launches_per_step": per_step, "steps_per_s": sps,
             "mpx_per_s": mps, "run_steps_per_s": run_sps, "profile": prof,
             "l1": l1s, "best": best, "eval": ev}
@@ -1411,6 +1529,8 @@ def phase_gan(card: str, pretrained: str, workdir: str) -> dict:
     prof = profile_breakdown(lambda: step(named, lr_img, hr_img), card,
                              top=10, host_top=8, group=_gan_profile_groups)
     prof["host_ms"], prof["step_ms"] = sorted(host_ms)[2], sorted(wall_ms)[2]
+    prof["conv_ops"] = step_summary(
+        "GAN", lambda: step(state, lr_img, hr_img), prof, None, card)
     del state, named
     torch.cuda.empty_cache()
 
@@ -3677,7 +3797,9 @@ def main() -> int:
          "spatial_launches_per_rank": [
              r["tiles"]["launches"][name] for r in par_res["infer"]],
          "artifact_launches_per_forward":
-             serve_res["launches"][name] / serve_res["forwards"]}
+             serve_res["launches"][name] / serve_res["forwards"],
+         "train_rows": [r for r in train_res["rows"]
+                        if r["kernel"].startswith(name)]}
         for name, (src, rep) in sources.items()]}
     conv = quant_res["conv"]
     print(f"int8 conv (library route, torch._int_mm; not a kernel port): "

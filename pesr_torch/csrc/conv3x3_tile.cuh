@@ -334,16 +334,18 @@ __device__ __forceinline__ void produce_weights(Pipes<WS>& p, uint8_t* wring, Ri
   ++pos.n;
 }
 
-// Producer side: the next activation window chunk, 4 rows x 66 pixels x
-// 32 channels from (x0, y0) of image b (zero outside the image).
+// Producer side: the next activation window chunk, the map's box (32
+// channels x `bytes` / 64 pixels) from (x0, y0) of image b (zero outside
+// the image), into window slot `pos` of `slot_bytes` bytes each.
 template <int WS>
 __device__ __forceinline__ void produce_window(Pipes<WS>& p, uint8_t* wins, RingPos& pos,
                                                const CUtensorMap* map, int kc, int x0, int y0,
-                                               int b) {
+                                               int b, int slot_bytes = kWinBytes,
+                                               int bytes = kWinBytes) {
   const uint32_t s = pos.slot<2>();
   mbar_wait<true>(&p.in_empty[s], pos.parity<2>() ^ 1);
-  mbar_expect_tx(&p.in_full[s], kWinBytes);
-  tma_load_4d(wins + s * kWinBytes, map, &p.in_full[s], kc * kKChunk, x0, y0, b);
+  mbar_expect_tx(&p.in_full[s], bytes);
+  tma_load_4d(wins + s * slot_bytes, map, &p.in_full[s], kc * kKChunk, x0, y0, b);
   ++pos.n;
 }
 
@@ -427,6 +429,27 @@ __device__ __forceinline__ void conv3x3_wgmma(float (&acc)[N / 2], Pipes<WS>& p,
   if (kWindowed) release_window(p, prev_in);
 }
 
+// The same stages as conv3x3_wgmma for a warpgroup with no pixels in this
+// step: no MMA, but every stage waited for and released with the other
+// warpgroup, so that the rings stay in step across the CTA and the
+// cluster.
+template <int KC, int WS, bool kWindowed>
+__device__ __forceinline__ void conv3x3_skip(Pipes<WS>& p, RingPos& wpos, RingPos& ipos) {
+#pragma unroll 1
+  for (int s = 0; s < 9 * KC; ++s) {
+    const int tap = s % 9;
+    if (kWindowed && tap == 0) mbar_wait(&p.in_full[ipos.slot<2>()], ipos.parity<2>());
+    const uint32_t ws = wpos.slot<WS>();
+    mbar_wait(&p.w_full[ws], wpos.parity<WS>());
+    release_weights(p, ws);
+    ++wpos.n;
+    if (kWindowed && tap == 8) {
+      release_window(p, ipos.slot<2>());
+      ++ipos.n;
+    }
+  }
+}
+
 // Lane's ldmatrix row and 8-channel half within a k16 slice: matrices
 // (rows 0-7 | 8-15) x (k 0-7 | 8-15) of the warp's 16-pixel A fragment.
 __device__ __forceinline__ int lane_row() {
@@ -448,6 +471,65 @@ struct WindowA {
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A 4 x 4 transpose across the 4 lanes of a quad (lane & 3 = q): word w of
+// lane q <-> word q of lane w.  The wgmma D fragment gives lane q channels
+// 8 g + 2 q, + 1 of a pixel for each 8-channel group g; transposed, lane q
+// holds all 8 channels of group q of 4, one 16-byte vector.
+__device__ __forceinline__ void quad_transpose(uint32_t (&e)[4]) {
+  const int q = threadIdx.x & 3;
+  const bool hi = q & 2, odd = q & 1;
+  uint32_t t0 = hi ? e[0] : e[2], t1 = hi ? e[1] : e[3];
+  t0 = __shfl_xor_sync(0xffffffffu, t0, 2);
+  t1 = __shfl_xor_sync(0xffffffffu, t1, 2);
+  e[0] = hi ? t0 : e[0];
+  e[1] = hi ? t1 : e[1];
+  e[2] = hi ? e[2] : t0;
+  e[3] = hi ? e[3] : t1;
+  t0 = odd ? e[0] : e[1];
+  t1 = odd ? e[2] : e[3];
+  t0 = __shfl_xor_sync(0xffffffffu, t0, 1);
+  t1 = __shfl_xor_sync(0xffffffffu, t1, 1);
+  e[0] = odd ? t0 : e[0];
+  e[2] = odd ? t1 : e[2];
+  e[1] = odd ? e[1] : t0;
+  e[3] = odd ? e[3] : t1;
+}
+
+// The residual epilogue of pixel row v (0, 1) of this lane's D fragment:
+// out = x + res_scale * (acc + bias), added in f32 and rounded to bf16
+// once, for the C channels of flat pixel `pix`, if `valid` (the same for
+// the 4 lanes of a quad; every lane of the warp calls it, with no branch
+// around the call).  The residual and the
+// output move as 16-byte vectors, 8 channels a lane (two full 32-byte
+// sectors per pixel and quad), transposed across the quad to and from
+// the fragment's 2 channels per lane and group.
+template <int C>
+__device__ __forceinline__ void residual_epilogue(const float (&acc)[C / 2], int v,
+                                                  const float* __restrict__ bias,
+                                                  const bf16* __restrict__ x,
+                                                  bf16* __restrict__ out, int64_t pix,
+                                                  bool valid, float res_scale) {
+  const int q = threadIdx.x & 3;
+#pragma unroll
+  for (int t = 0; t < C / 32; ++t) {
+    // An invalid pixel loads pixel 0 (no branch) and stores nothing.
+    const int64_t at = (valid ? pix : 0) * C + 8 * (4 * t + q);
+    const uint4 u = *reinterpret_cast<const uint4*>(x + at);
+    uint32_t r[4] = {u.x, u.y, u.z, u.w};
+    quad_transpose(r);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const int j = 4 * t + g;
+      const float2 bb = __ldg(reinterpret_cast<const float2*>(bias + 8 * j + 2 * q));
+      const float lo = __uint_as_float(r[g] << 16), hi = __uint_as_float(r[g] & 0xffff0000u);
+      r[g] = pack_bf16x2(lo + res_scale * (acc[4 * j + 2 * v] + bb.x),
+                         hi + res_scale * (acc[4 * j + 2 * v + 1] + bb.y));
+    }
+    quad_transpose(r);
+    if (valid) *reinterpret_cast<uint4*>(out + at) = make_uint4(r[0], r[1], r[2], r[3]);
+  }
 }
 
 // ------------------------------------------------------------- host ---

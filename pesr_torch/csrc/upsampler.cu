@@ -19,13 +19,17 @@
 // design:
 //
 //   * persistent clusters of 2 CTAs walk a list of tiles
-//     (wrapper: upsampler_schedule).  A tile is two conv rows x 64 pixels
-//     per CTA (M = 128, one row per consumer warpgroup) x 256 packed conv
+//     (wrapper: upsampler_schedule).  A CTA tile is two conv rows x 64
+//     pixels (M = 128, one row per consumer warpgroup) x 256 packed conv
 //     columns (N = 256: 64 output channels x 4 sub-pixel phases).  The
-//     CTAs of a cluster take neighbouring 64-pixel segments of the same
-//     rows and column group, and each multicasts half of every weight
-//     box to both: L2 serves each weight byte once per 2 x 128 conv
-//     pixels;
+//     CTAs of a cluster take consecutive CTA tiles of the list (row
+//     pair-major, 64-pixel segment-minor) in the same column group, and
+//     each multicasts half of every weight box to both: L2 serves each
+//     weight byte once per 2 x 128 conv pixels.  On a wide image the
+//     pair is two neighbouring segments of one row pair; on a narrow one
+//     (an odd number of segments per row, W = 48 of the training patches
+//     among them) it may be the same segment of two row pairs, so no CTA
+//     computes a segment that lies outside the image;
 //   * the mainloop of conv3x3_tile.cuh: wgmma with A from registers
 //     (ldmatrix on a streamed 4 x 66-pixel window), B through a 6-stage
 //     TMA ring;
@@ -59,19 +63,18 @@ struct Layout {
   static_assert(kBytes <= kMaxSmem, "shared memory");
 };
 
-// Tile ct of the list: image b, row pair rp, segment group xg (kCluster
-// neighbouring 64-pixel segments, one per CTA of the cluster), channel
-// group g.
+// Cluster tile ct of the list: channel group g, and CTA tile u =
+// kCluster * (ct / groups) + rank = (b * rpairs + rp) * segs + seg: image
+// b, row pair rp, 64-pixel segment seg (b >= B: past the last CTA tile).
 struct Tile {
   int b, g, y0, x0;  // y0: first conv row; x0: first pixel of this CTA
-  __device__ __forceinline__ Tile(int ct, int groups, int xgroups, int rpairs, uint32_t rank) {
+  __device__ __forceinline__ Tile(int ct, int groups, int segs, int rpairs, uint32_t rank) {
     g = ct % groups;
-    int t = ct / groups;
-    const int xg = t % xgroups;
-    t /= xgroups;
+    const int u = kCluster * (ct / groups) + static_cast<int>(rank);
+    const int t = u / segs;
+    x0 = (u % segs) * kTileW;
     y0 = 2 * (t % rpairs);
     b = t / rpairs;
-    x0 = (kCluster * xg + static_cast<int>(rank)) * kTileW;
   }
 };
 
@@ -81,7 +84,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     upsampler_kernel(const __grid_constant__ CUtensorMap xmap,
                      const __grid_constant__ CUtensorMap wmap,
                      const __grid_constant__ CUtensorMap omap, const float* __restrict__ bias,
-                     int H, int W, int tiles, int rpairs, int xgroups) {
+                     int B, int H, int W, int tiles, int rpairs, int segs) {
   constexpr int KC = C / kKChunk;
   constexpr int G = C / kGroup;
   extern __shared__ __align__(1024) uint8_t smem[];
@@ -102,7 +105,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (threadIdx.x == kConsumers) {
       RingPos wpos, ipos;
       for (int ct = first; ct < tiles; ct += stride) {
-        const Tile t(ct, G, xgroups, rpairs, rank);
+        const Tile t(ct, G, segs, rpairs, rank);
         for (int kc = 0; kc < KC; ++kc) {
           produce_window(pipes, smem + Layout::kWinOff, ipos, &xmap, kc, t.x0 - 1, t.y0 - 1, t.b);
           for (int tap = 0; tap < 9; ++tap)
@@ -125,7 +128,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     RingPos wpos, ipos;
     float acc[kN / 2];
     for (int ct = first; ct < tiles; ct += stride) {
-      const Tile t(ct, G, xgroups, rpairs, rank);
+      const Tile t(ct, G, segs, rpairs, rank);
       conv3x3_wgmma<kN, KC, kStages, true>(acc, pipes, wring, wpos, ipos, wa);
       // The previous tile's store has read the staging tile.
       if (leader) tma_store_wait_read();
@@ -150,7 +153,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_async_shared();
       named_barrier(3 + wg, 128);
       const int y = t.y0 + wg;
-      if (leader && y < H && t.x0 < W)
+      if (leader && t.b < B && y < H)
         tma_store_4d(&omap, smem + Layout::kStageOff + wg * kStageOut, t.g * kGroup, 2 * t.x0,
                      2 * y, t.b);
     }
@@ -161,7 +164,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <int C>
 int launch(const void* x, const void* w, const void* bias, void* out, int B, int H, int W,
-           int tiles, int rpairs, int xgroups, int ctas, cudaStream_t stream) {
+           int tiles, int rpairs, int segs, int ctas, cudaStream_t stream) {
   CUtensorMap xm, wm, om;
   const uint64_t odims[4] = {uint64_t(C), uint64_t(2 * W), uint64_t(2 * H), uint64_t(B)};
   const uint64_t ostrides[3] = {uint64_t(C) * 2, uint64_t(2 * W) * C * 2,
@@ -171,8 +174,8 @@ int launch(const void* x, const void* w, const void* bias, void* out, int B, int
       !make_map(&om, out, 4, odims, ostrides, obox, CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_clusters(upsampler_kernel<C>, ctas, Layout::kBytes, stream, xm,
-                                          wm, om, static_cast<const float*>(bias), H, W, tiles,
-                                          rpairs, xgroups));
+                                          wm, om, static_cast<const float*>(bias), B, H, W, tiles,
+                                          rpairs, segs));
 }
 
 }  // namespace
@@ -180,23 +183,23 @@ int launch(const void* x, const void* w, const void* bias, void* out, int B, int
 
 // x: [batch, H, W, C] bf16 NHWC; w: [3, 3, 4C, C] bf16 packed as
 // [tap][packed column][input]; bias: [4C] f32 packed; out: [batch, 2H,
-// 2W, C] bf16; all 16-byte aligned.  tiles / rpairs / xgroups / ctas:
+// 2W, C] bf16; all 16-byte aligned.  tiles / rpairs / segs / ctas:
 // the schedule of upsampler_schedule (ctas a multiple of the cluster
 // size 2).  Returns the CUDA error code of the launch (0 =
 // launched).  C must be 64, 128 or 256.
 extern "C" int pesr_fused_upsampler_stage(const void* x, const void* w, const void* bias,
                                           void* out, int batch, int H, int W, int C, int tiles,
-                                          int rpairs, int xgroups, int ctas, void* stream) {
+                                          int rpairs, int segs, int ctas, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ctas < pesr::kCluster || ctas % pesr::kCluster)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (C) {
     case 64:
-      return pesr::launch<64>(x, w, bias, out, batch, H, W, tiles, rpairs, xgroups, ctas, s);
+      return pesr::launch<64>(x, w, bias, out, batch, H, W, tiles, rpairs, segs, ctas, s);
     case 128:
-      return pesr::launch<128>(x, w, bias, out, batch, H, W, tiles, rpairs, xgroups, ctas, s);
+      return pesr::launch<128>(x, w, bias, out, batch, H, W, tiles, rpairs, segs, ctas, s);
     case 256:
-      return pesr::launch<256>(x, w, bias, out, batch, H, W, tiles, rpairs, xgroups, ctas, s);
+      return pesr::launch<256>(x, w, bias, out, batch, H, W, tiles, rpairs, segs, ctas, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

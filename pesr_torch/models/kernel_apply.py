@@ -26,7 +26,8 @@ accumulation in the kernels.
   parameters on every call, casts them to ``dtype`` (gradients reach the
   parameters, f32 or bf16 by ``--param_dtype``, through the cast, as
   JAX's ``w.astype(dtype)``) and runs the differentiable kernels, whose
-  backward is recomputed through the plain versions.  Folded
+  backward runs library convolution gradients (``resblock_backward``,
+  ``upsampler_stage_backward``).  Folded
   (``--fold_train``), it composes the fold analytically from the live
   upsampler and out weights on every call, so the optimizer updates them
   through it; snapshots keep them.

@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels (``pesr_torch/csrc``), each with its plain
 PyTorch version beside it and a launch counter on its wrapper, and a
-differentiable form (``*_train``: the kernel forward, a backward
-recomputed through the plain version)."""
+differentiable form (``*_train``: the kernel forward, a backward of
+library convolution gradients that recomputes only what they read)."""
 
 from pesr_torch.ops.kernels.resblock import (fused_resblock,  # noqa: F401
                                              fused_resblock_train,

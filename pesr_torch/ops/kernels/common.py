@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the shared pieces of the TPU conv kernels
 (``pesr_tpu/ops/pallas/common.py``): the shift-accumulate VALID 3x3 conv
 and the halo tiling; the SAME NHWC conv the plain versions and the
-generator's library convs share; and the recompute backward of the
-kernels' autograd Functions.
+generator's library convs share, and its backward, which the kernels'
+autograd Functions call.
 
 On the card these live inside the kernels: ``csrc/conv3x3_tile.cuh``
 runs the conv as an implicit GEMM (wgmma) from shared-memory windows that
@@ -13,7 +13,7 @@ same semantics in PyTorch, for the tests.
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -69,16 +69,17 @@ def untile(tiles: torch.Tensor, b: int, nh: int, nw: int, h: int, w: int
     return out.reshape(b, nh * th, nw * tw, c)[:, :h, :w]
 
 
-def recompute_backward(ctx, plain: Callable, g: torch.Tensor
-                       ) -> List[Optional[torch.Tensor]]:
-    """Backward of a kernel's autograd Function: autograd of its plain
-    version, recomputed from the tensors the forward saved, in their
-    dtype (the JAX kernels' ``custom_vjp`` backward).  Returns one
-    gradient per saved tensor, None where none was asked for."""
-    saved = [t.detach().requires_grad_(need) for t, need in
-             zip(ctx.saved_tensors, ctx.needs_input_grad)]
-    with torch.enable_grad():
-        out = plain(*saved)
-    grads = iter(torch.autograd.grad(
-        out, [t for t in saved if t.requires_grad], g))
-    return [next(grads) if t.requires_grad else None for t in saved]
+def conv3x3_nhwc_backward(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                          need: Sequence[bool]
+                          ) -> Tuple[Optional[torch.Tensor], ...]:
+    """Gradients of :func:`conv3x3_nhwc` (``x`` NHWC, ``w`` OIHW, a bias)
+    for the cotangent ``g`` of its NHWC output: ``(dx, dw, db)``, None
+    where ``need`` asks for none.  One ``convolution_backward`` on the
+    same NCHW views autograd gives it, each gradient in the dtype of its
+    input."""
+    gx, gw, gb = torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2), w.to(x.dtype),
+        [w.shape[0]], [1, 1], [1, 1], [1, 1], False, [0, 0], 1, list(need))
+    return (gx.permute(0, 2, 3, 1) if need[0] else None,
+            gw.to(w.dtype) if need[1] else None,
+            gb if need[2] else None)

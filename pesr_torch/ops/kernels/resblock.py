@@ -22,25 +22,27 @@ ctypes launch.  ``fused_resblock.launches`` counts kernel launches.
 :func:`resblock_schedule` is the kernel's work decomposition, computed
 here so that the CPU tests can check it.  :func:`fused_resblock_train`
 is the differentiable form training uses: the kernel forward on weights
-packed per call, a backward recomputed through the plain version.
+packed per call, and :func:`resblock_backward`, which recomputes only
+the hidden activation.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Iterator, NamedTuple, Tuple
+from typing import Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from pesr_torch.ops.kernels import build
-from pesr_torch.ops.kernels.common import conv3x3_nhwc, recompute_backward
+from pesr_torch.ops.kernels.common import conv3x3_nhwc, conv3x3_nhwc_backward
 
 KERNEL_CHANNELS = (64, 128, 256)
 CLUSTER = 2     # CTAs sharing each weight fetch (kCluster, conv3x3_tile.cuh)
 STRIP_OUT = 62  # output columns of a strip: a 64-pixel hidden row - halo
+FLAT_W = (2, 48)  # widths flat mode takes (kFlatMaxW, resblock.cu)
 _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float]
-             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def resblock_reference(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -80,30 +82,37 @@ def unpack_resblock(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
 
 
 class ResblockSchedule(NamedTuple):
-    """The kernel's decomposition: CTA i (of ``ctas``, a multiple of
+    """The kernel's decomposition, in one of two modes.
+
+    Line mode (``span == 0``): CTA i (of ``ctas``, a multiple of
     :data:`CLUSTER`) owns image ``i // (strips * segs)``, strip
     ``i % strips`` (output columns ``[62 s, 62 s + 62)``) and segment
-    ``(i // strips) % segs`` (output rows ``[rows g, rows g + rows)``); a
-    CTA past the last item computes on zeros and stores nothing."""
+    ``(i // strips) % segs`` (output rows ``[rows g, rows g + rows)``);
+    it runs ``rows / 2 + 1`` conv1 and ``rows / 2`` conv2 steps of 128
+    pixels.  A CTA past the last item computes on zeros and stores
+    nothing.
+
+    Flat mode (``span > 0``, narrow images): the batch's pixels are one
+    flat sequence ``(b * H + y) * W + x``, and CTA i owns outputs
+    ``[span i, span i + span)`` (``rows = strips = segs = 0``); it runs
+    ``span / 128 + 1`` conv1 and ``span / 128`` conv2 steps, rounded up,
+    the last step of each by one warpgroup of 64 pixels where ``span`` is
+    an odd multiple of 64."""
     rows: int
     strips: int
     segs: int
     ctas: int
+    span: int = 0
 
 
 def _ctas(bsz: int, strips: int, segs: int) -> int:
     return -(-bsz * strips * segs // CLUSTER) * CLUSTER
 
 
-@functools.lru_cache(maxsize=None)
-def resblock_schedule(bsz: int, h: int, w: int,
-                      clusters: int = 66) -> ResblockSchedule:
-    """Rows per segment that minimise (waves of CTAs) x (steps per CTA):
-    every CTA runs rows / 2 + 1 conv1 steps whatever its position, and
-    ``clusters`` clusters of :data:`CLUSTER` CTAs run at once (on the
-    H100, 66: one CTA per SM).  Ties go to longer segments (less vertical
-    halo).  The main path's [2, 336, 510] gets 9 strips x 7 segments of
-    48 rows x 2 images = 126 CTAs: one wave."""
+def _line(bsz: int, h: int, w: int, clusters: int):
+    """Line mode's schedule and its cost in half steps (64-pixel MMA
+    passes per CTA, times the waves of CTAs).  The rows per segment
+    minimise (waves) x (conv1 steps per CTA)."""
     strips = -(-w // STRIP_OUT)
     slots = CLUSTER * max(1, clusters)
     best_cost, best_rows = None, 2
@@ -113,7 +122,60 @@ def resblock_schedule(bsz: int, h: int, w: int,
         if best_cost is None or cost <= best_cost:
             best_cost, best_rows = cost, rows
     segs = -(-h // best_rows)
-    return ResblockSchedule(best_rows, strips, segs, _ctas(bsz, strips, segs))
+    ctas = _ctas(bsz, strips, segs)
+    return (ResblockSchedule(best_rows, strips, segs, ctas),
+            -(-ctas // slots) * 2 * (best_rows + 1))
+
+
+def _flat(bsz: int, h: int, w: int, clusters: int):
+    """Flat mode's best schedule and its cost in half steps: spans of
+    64 k pixels cost 2 k + 2 half steps each (conv2's k, conv1's k + 2).
+    Ties go to longer spans (fewer CTAs, less L2 weight traffic)."""
+    total, slots = bsz * h * w, CLUSTER * max(1, clusters)
+    best = None
+    for k in range(1, -(-total // 64) + 1):
+        ctas = -(-total // (64 * k) // CLUSTER) * CLUSTER
+        cost = -(-ctas // slots) * (2 * k + 2)
+        if best is None or cost <= best[1]:
+            best = (ResblockSchedule(0, 0, 0, ctas, 64 * k), cost)
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def resblock_schedule(bsz: int, h: int, w: int,
+                      clusters: int = 66) -> ResblockSchedule:
+    """The cheaper of the two modes in (waves of CTAs) x (steps per CTA),
+    ``clusters`` clusters of :data:`CLUSTER` CTAs running at once (on
+    the H100, 66: one CTA per SM); ties keep line mode.  Line mode takes
+    the rows per segment of least cost, ties going to longer segments
+    (less vertical halo): the main path's [2, 336, 510] gets 9 strips x 7
+    segments of 48 rows x 2 images = 126 CTAs, one wave.  Flat mode
+    takes only widths in :data:`FLAT_W`: the training patches'
+    [16, 48, 48] get 116 CTAs of 320 pixels (6 steps each, line mode 7)."""
+    line, line_cost = _line(bsz, h, w, clusters)
+    if FLAT_W[0] <= w <= FLAT_W[1]:
+        flat, flat_cost = _flat(bsz, h, w, clusters)
+        if flat_cost < line_cost:
+            return flat
+    return line
+
+
+def _steps(sched: ResblockSchedule) -> Tuple[int, int]:
+    """(conv1, conv2) half steps (64-pixel MMA passes) of one CTA."""
+    if sched.span:
+        return sched.span // 64 + 2, sched.span // 64
+    return sched.rows + 2, sched.rows
+
+
+def resblock_work(bsz: int, h: int, w: int, c: int = 256,
+                  clusters: int = 66) -> Tuple[int, int]:
+    """(computed, useful) conv MACs of one launch: every CTA of the
+    schedule, past the last item too, runs its conv steps on 64-pixel
+    warpgroup tiles of 9 C x C MACs per pixel, whether or not the pixels
+    lie in the image."""
+    sched = resblock_schedule(bsz, h, w, clusters)
+    computed = sched.ctas * sum(_steps(sched)) * 64 * 9 * c * c
+    return computed, 2 * bsz * h * w * 9 * c * c
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,8 +193,19 @@ def _max_clusters(c: int, device: torch.device) -> int:
 
 def resblock_tiles(sched: ResblockSchedule, bsz: int, h: int, w: int
                    ) -> Iterator[Tuple[int, int, int, int, int, int]]:
-    """``(cta, b, y0, y1, x0, x1)``: the output rectangle each CTA writes,
-    as the kernel decodes its block index (clipped to the image)."""
+    """``(cta, b, y0, y1, x0, x1)``: the output rectangles each CTA
+    writes, as the kernel decodes its block index (clipped to the image;
+    in flat mode, one per row its span touches)."""
+    if sched.span:
+        total = bsz * h * w
+        for i in range(sched.ctas):
+            o, end = i * sched.span, min((i + 1) * sched.span, total)
+            while o < end:
+                r, x0 = divmod(o, w)
+                x1 = min(w, x0 + end - o)
+                yield i, r // h, r % h, r % h + 1, x0, x1
+                o += x1 - x0
+        return
     per_img = sched.strips * sched.segs
     for i in range(sched.ctas):
         b, r = divmod(i, per_img)
@@ -222,16 +295,39 @@ def _resblock_fake(x, w1, b1, w2, b2, res_scale):
     return torch.empty_like(x)
 
 
+def resblock_backward(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                      w2: torch.Tensor, b2: torch.Tensor, res_scale: float,
+                      g: torch.Tensor, need: Sequence[bool]
+                      ) -> Tuple[Optional[torch.Tensor], ...]:
+    """Gradients of :func:`resblock_reference` (OIHW weights, in x.dtype)
+    for the cotangent ``g``: ``(dx, dw1, db1, dw2, db2)``, None where
+    ``need`` asks for none.  Only what a gradient reads is recomputed:
+    conv1 -> bias -> ReLU gives the hidden activation (conv2's input and
+    the ReLU mask); conv2's forward is read by nothing, as XLA drops it
+    from JAX's ``jax.vjp`` of the same reference inside a jitted step.
+    One convolution and two ``convolution_backward`` calls, the ones
+    autograd of the reference makes."""
+    first = any(need[:3])
+    h = torch.relu(conv3x3_nhwc(x, w1, b1))
+    gh, gw2, gb2 = conv3x3_nhwc_backward(g * res_scale, h, w2,
+                                         (first, need[3], need[4]))
+    if not first:
+        return None, None, None, gw2, gb2
+    gx, gw1, gb1 = conv3x3_nhwc_backward(
+        torch.ops.aten.threshold_backward(gh, h, 0), x, w1, need[:3])
+    return (g + gx if need[0] else None), gw1, gb1, gw2, gb2
+
+
 class FusedResblock(torch.autograd.Function):
     """:func:`fused_resblock` with a backward (counterpart of the JAX
     kernel's ``custom_vjp``, ``_resblock_fwd`` / ``_resblock_bwd``).
 
     Takes unpacked torch OIHW weights and biases in x.dtype.  Forward:
     packs them (no grad) and runs :func:`fused_resblock`; saves only
-    ``x`` and the unpacked weights.  Backward: autograd of
-    :func:`resblock_reference`, recomputed from the saved tensors in
-    x.dtype -- the hidden activation is never stored, so the body keeps
-    one activation per block between forward and backward."""
+    ``x`` and the unpacked weights.  Backward: :func:`resblock_backward`
+    from the saved tensors in x.dtype -- the hidden activation is never
+    stored, so the body keeps one activation per block between forward
+    and backward."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, res_scale):
@@ -242,11 +338,8 @@ class FusedResblock(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        rs = ctx.res_scale
-        return (*recompute_backward(
-            ctx, lambda x, w1, b1, w2, b2: resblock_reference(
-                x, w1.permute(2, 3, 1, 0), b1, w2.permute(2, 3, 1, 0), b2,
-                rs), g), None)
+        return (*resblock_backward(*ctx.saved_tensors, ctx.res_scale, g,
+                                   ctx.needs_input_grad[:5]), None)
 
 
 def fused_resblock_train(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,

@@ -24,20 +24,20 @@ plain PyTorch version, for a CPU tensor (its fake implementation lets
 ``torch.export`` trace through it).  ``fused_upsampler_stage.launches``
 counts kernel launches.
 :func:`fused_upsampler_stage_train` is the differentiable form training
-uses: the kernel forward on weights packed per call, a backward
-recomputed through the plain version.
+uses: the kernel forward on weights packed per call, and
+:func:`upsampler_stage_backward`, which recomputes nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Iterator, NamedTuple, Tuple
+from typing import Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from pesr_torch.ops.kernels import build
-from pesr_torch.ops.kernels.common import conv3x3_nhwc, recompute_backward
+from pesr_torch.ops.kernels.common import conv3x3_nhwc, conv3x3_nhwc_backward
 from pesr_torch.ops.kernels.resblock import CLUSTER, KERNEL_CHANNELS
 from pesr_torch.ops.pixel_shuffle import pixel_shuffle
 
@@ -94,15 +94,22 @@ def unpack_upsampler_stage(wp: torch.Tensor, bp: torch.Tensor
 
 
 class UpsamplerSchedule(NamedTuple):
-    """The kernel's tile list.  Tile ``t`` (of ``tiles``) is image
-    ``b``, conv rows ``2 rp, 2 rp + 1``, the :data:`CLUSTER` 64-pixel
-    segments ``CLUSTER * xg + rank`` (one per CTA of a cluster) and
-    output-channel group ``g`` (64 channels), with ``t = ((b * rpairs +
-    rp) * xgroups + xg) * groups + g``.  Cluster ``k`` of ``ctas //
-    CLUSTER`` takes tiles ``k, k + ctas // CLUSTER, ...``."""
+    """The kernel's tile list.  A CTA tile is image ``b``, conv rows
+    ``2 rp, 2 rp + 1`` and 64-pixel segment ``seg`` of those rows, numbered
+    ``u = (b * rpairs + rp) * segs + seg``; cluster tile ``t`` (of
+    ``tiles``) gives CTA ``rank`` of the cluster the CTA tile ``u =
+    CLUSTER * (t // groups) + rank`` and both CTAs output-channel group
+    ``g = t % groups`` (64 channels), so the two share every weight box.
+    Where ``segs`` is even the pair is two neighbouring segments of one
+    row pair (the tile list of the wide images); where it is odd, a pair
+    may take the same segment of two row pairs or images, and no CTA
+    takes a segment outside the image (at W = 48, one segment per row
+    pair).  A CTA tile past the last one computes on zeros and stores
+    nothing.  Cluster ``k`` of ``ctas // CLUSTER`` takes tiles ``k, k +
+    ctas // CLUSTER, ...``."""
     tiles: int
     rpairs: int
-    xgroups: int
+    segs: int
     ctas: int
 
 
@@ -111,11 +118,20 @@ def upsampler_schedule(bsz: int, h: int, w: int, c: int,
                        clusters: int = 66) -> UpsamplerSchedule:
     """As many persistent clusters as run at once (on the H100, 66:
     one CTA per SM), or fewer when there are fewer tiles."""
-    rpairs = -(-h // 2)
-    xgroups = -(-(-(-w // TILE_W)) // CLUSTER)
-    tiles = bsz * rpairs * xgroups * max(1, c // _GROUP)
-    return UpsamplerSchedule(tiles, rpairs, xgroups,
+    rpairs, segs = -(-h // 2), -(-w // TILE_W)
+    tiles = -(-bsz * rpairs * segs // CLUSTER) * max(1, c // _GROUP)
+    return UpsamplerSchedule(tiles, rpairs, segs,
                              CLUSTER * min(tiles, max(1, clusters)))
+
+
+def upsampler_work(bsz: int, h: int, w: int, c: int,
+                   clusters: int = 66) -> Tuple[int, int]:
+    """(computed, useful) conv MACs of one launch: every CTA tile of the
+    schedule computes 2 rows x 64 pixels x 256 packed columns x 9 C,
+    whether or not its pixels lie in the image."""
+    sched = upsampler_schedule(bsz, h, w, c, clusters)
+    computed = sched.tiles * CLUSTER * 2 * TILE_W * 4 * _GROUP * 9 * c
+    return computed, bsz * h * w * 4 * c * 9 * c
 
 
 @functools.lru_cache(maxsize=None)
@@ -133,19 +149,19 @@ def _max_clusters(device: torch.device) -> int:
 def upsampler_tiles(sched: UpsamplerSchedule, bsz: int, h: int, w: int,
                     c: int) -> Iterator[Tuple[int, int, int, int, int, int]]:
     """``(cta, b, g, y, x0, x1)``: each conv row segment a consumer
-    warpgroup computes, as the kernel decodes its tiles (clipped to the
-    image; rows and segments past it are computed on zeros and not
+    warpgroup stores, as the kernel decodes its tiles (clipped to the
+    image; rows and CTA tiles past it are computed on zeros and not
     stored)."""
     groups = max(1, c // _GROUP)
     for cta in range(sched.ctas):
         rank = cta % CLUSTER
         for t in range(cta // CLUSTER, sched.tiles, sched.ctas // CLUSTER):
-            rest, g = divmod(t, groups)
-            rest, xg = divmod(rest, sched.xgroups)
+            pair, g = divmod(t, groups)
+            rest, seg = divmod(CLUSTER * pair + rank, sched.segs)
             b, rp = divmod(rest, sched.rpairs)
-            x0 = (CLUSTER * xg + rank) * TILE_W
+            x0 = seg * TILE_W
             for y in (2 * rp, 2 * rp + 1):
-                if b < bsz and y < h and x0 < w:
+                if b < bsz and y < h:
                     yield cta, b, g, y, x0, min(x0 + TILE_W, w)
 
 
@@ -219,15 +235,30 @@ def _upsampler_fake(x, wp, bp):
     return x.new_empty((bsz, 2 * h, 2 * w, c))
 
 
+def upsampler_stage_backward(x: torch.Tensor, w: torch.Tensor,
+                             b: torch.Tensor, g: torch.Tensor,
+                             need: Sequence[bool]
+                             ) -> Tuple[Optional[torch.Tensor], ...]:
+    """Gradients of :func:`upsampler_stage_reference` (OIHW weight ``(4C,
+    C, 3, 3)``, in x.dtype) for the cotangent ``g`` of its [B, 2H, 2W, C]
+    output: ``(dx, dw, db)``, None where ``need`` asks for none.  The
+    stage is linear, so nothing is recomputed: the shuffle's adjoint
+    gives the conv's cotangent, and one ``convolution_backward`` the
+    gradients."""
+    bsz, h2, w2, c = g.shape
+    gy = (g.reshape(bsz, h2 // 2, 2, w2 // 2, 2, c).permute(0, 1, 3, 5, 2, 4)
+          .reshape(bsz, h2 // 2, w2 // 2, 4 * c))
+    return conv3x3_nhwc_backward(gy, x, w, need)
+
+
 class FusedUpsamplerStage(torch.autograd.Function):
     """:func:`fused_upsampler_stage` with a backward (counterpart of the
     JAX kernel's ``custom_vjp``, ``_upsampler_fwd`` / ``_upsampler_bwd``).
 
     Takes the torch OIHW conv weight ``(4C, C, 3, 3)`` and bias ``(4C,)``
     in x.dtype.  Forward: packs them (no grad) and runs the kernel; saves
-    ``x`` and the unpacked weights.  Backward: autograd of
-    :func:`upsampler_stage_reference`, recomputed from the saved tensors
-    in x.dtype."""
+    ``x`` and the unpacked weights.  Backward:
+    :func:`upsampler_stage_backward` from the saved tensors in x.dtype."""
 
     @staticmethod
     def forward(ctx, x, w, b):
@@ -237,9 +268,8 @@ class FusedUpsamplerStage(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return tuple(recompute_backward(
-            ctx, lambda x, w, b: upsampler_stage_reference(
-                x, w.permute(2, 3, 1, 0), b), g))
+        return upsampler_stage_backward(*ctx.saved_tensors, g,
+                                        ctx.needs_input_grad)
 
 
 def fused_upsampler_stage_train(x: torch.Tensor, w: torch.Tensor,

@@ -30,11 +30,14 @@ from pesr_torch.ops.kernels import (fused_resblock, fused_upsampler_stage,
                                     resblock_reference,
                                     upsampler_stage_reference)
 from pesr_torch.ops.kernels.common import conv3x3_shift_acc, halo_tiles, untile
-from pesr_torch.ops.kernels.resblock import (CLUSTER, resblock_schedule,
-                                             resblock_tiles, unpack_resblock)
-from pesr_torch.ops.kernels.upsampler import (unpack_upsampler_stage,
+from pesr_torch.ops.kernels.resblock import (CLUSTER, FLAT_W,
+                                             resblock_schedule,
+                                             resblock_tiles, resblock_work,
+                                             unpack_resblock)
+from pesr_torch.ops.kernels.upsampler import (TILE_W, unpack_upsampler_stage,
                                               upsampler_schedule,
-                                              upsampler_tiles)
+                                              upsampler_tiles,
+                                              upsampler_work)
 from pesr_torch.ops.pixel_shuffle import pixel_shuffle
 
 T = torch.from_numpy
@@ -219,16 +222,39 @@ def test_packed_layouts_round_trip_and_match_pallas(c):
 
 # (batch, H, W): narrower than a strip, a width one past a strip multiple
 # (62), a height one row past a segment boundary, a height shorter than
-# one segment with a batch of 3, and the main path's tile batch.
-_SCHEDULE_SHAPES = [(1, 5, 3), (1, 1, 1), (1, 9, 63), (2, 49, 510),
-                    (3, 5, 1426), (2, 336, 510)]
+# one segment with a batch of 3, and the main path's tile batch.  Then
+# narrow widths around the edges of the 16-pixel warp rows, the flat
+# mode's widest image (48) and the 64-pixel rows and segments, at
+# batches 1, 3 and 16 (the training batch at its 48 rows).
+_NARROW_W = (1, 16, 17, 31, 32, 33, 47, 48, 49, 63, 64, 65, 95, 96, 97,
+             127, 128, 129)
+_SCHEDULE_SHAPES = ([(1, 5, 3), (1, 1, 1), (1, 9, 63), (2, 49, 510),
+                     (3, 5, 1426), (2, 336, 510)]
+                    + [(b, h, w) for w in _NARROW_W
+                       for b, h in ((1, 5), (3, 7), (16, 48))])
+# The inference and eval tile batches (chain and folded x4 inference of
+# two 336 x 510 images, TiledUpscaler's 96 + 2 x 8 eval tiles in batches
+# of 8 and their x2 stages) and the schedules they got before flat mode
+# and the paired upsampler tiles: unchanged.
+_PINNED_RESBLOCK = {(2, 336, 510): (48, 9, 7, 126, 0),
+                    (2, 342, 516): (50, 9, 7, 126, 0),
+                    (8, 112, 112): (14, 2, 8, 128, 0)}
+_PINNED_UPSAMPLER = {(2, 336, 510): (5376, 168, 8, 132),
+                     (2, 672, 1020): (21504, 336, 16, 132),
+                     (8, 112, 112): (1792, 56, 2, 132),
+                     (8, 224, 224): (7168, 112, 4, 132)}
 
 
 @pytest.mark.parametrize("bsz,h,w", _SCHEDULE_SHAPES)
 def test_resblock_schedule_covers_every_output_once(bsz, h, w):
     sched = resblock_schedule(bsz, h, w, clusters=132 // CLUSTER)
-    assert sched.rows % 2 == 0 and sched.ctas % CLUSTER == 0
-    assert sched.ctas >= bsz * sched.strips * sched.segs
+    assert sched.ctas % CLUSTER == 0
+    if sched.span:
+        assert FLAT_W[0] <= w <= FLAT_W[1] and sched.span % 64 == 0
+        assert sched.ctas * sched.span >= bsz * h * w
+    else:
+        assert sched.rows % 2 == 0
+        assert sched.ctas >= bsz * sched.strips * sched.segs
     seen = np.zeros((bsz, h, w), np.int32)
     for _, b, y0, y1, x0, x1 in resblock_tiles(sched, bsz, h, w):
         seen[b, y0:y1, x0:x1] += 1
@@ -242,6 +268,23 @@ def test_resblock_schedule_covers_every_output_once(bsz, h, w):
         assert sched[:3] == (48, 9, 7) and sched.ctas <= 132
 
 
+def _old_upsampler_tiles(bsz, h, w, c, tiles, rpairs, ctas):
+    """The tile list before CTA tiles were paired across rows: the two
+    CTAs of a cluster on neighbouring segments of one row pair."""
+    xgroups = -(-(-(-w // TILE_W)) // CLUSTER)
+    groups = c // 64
+    for cta in range(ctas):
+        rank = cta % CLUSTER
+        for t in range(cta // CLUSTER, tiles, ctas // CLUSTER):
+            rest, g = divmod(t, groups)
+            rest, xg = divmod(rest, xgroups)
+            b, rp = divmod(rest, rpairs)
+            x0 = (CLUSTER * xg + rank) * TILE_W
+            for y in (2 * rp, 2 * rp + 1):
+                if b < bsz and y < h and x0 < w:
+                    yield cta, b, g, y, x0, min(x0 + TILE_W, w)
+
+
 @pytest.mark.parametrize("bsz,h,w", _SCHEDULE_SHAPES + [(2, 672, 1020)])
 @pytest.mark.parametrize("c", [64, 128, 256])
 def test_upsampler_schedule_covers_every_conv_pixel_once(bsz, h, w, c):
@@ -249,5 +292,53 @@ def test_upsampler_schedule_covers_every_conv_pixel_once(bsz, h, w, c):
     assert sched.ctas % CLUSTER == 0 and CLUSTER <= sched.ctas <= 132
     seen = np.zeros((bsz, c // 64, h, w), np.int32)
     for _, b, g, y, x0, x1 in upsampler_tiles(sched, bsz, h, w, c):
+        assert x0 < w  # no CTA takes a segment outside the image
         seen[b, g, y, x0:x1] += 1
     assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("shape", sorted(_PINNED_RESBLOCK))
+def test_resblock_inference_and_eval_schedules_are_unchanged(shape):
+    assert resblock_schedule(*shape) == _PINNED_RESBLOCK[shape]
+
+
+@pytest.mark.parametrize("shape", sorted(_PINNED_UPSAMPLER))
+def test_upsampler_inference_and_eval_tile_lists_are_unchanged(shape):
+    sched = upsampler_schedule(*shape, 256)
+    assert sched == _PINNED_UPSAMPLER[shape]
+    assert (list(upsampler_tiles(sched, *shape, 256))
+            == list(_old_upsampler_tiles(*shape, 256, sched.tiles,
+                                         sched.rpairs, sched.ctas)))
+
+
+# (kind, shape, ceiling); the earlier decompositions computed 2.67x
+# (upsampler, one CTA of each cluster on a segment past W = 48), 1.33x
+# and 1.56x (resblock, 64-pixel rows for 48 columns, 8 hidden rows per 6).
+@pytest.mark.parametrize("kind,shape,ceiling", [
+    ("upsampler", (16, 48, 48), 1.40),
+    ("upsampler", (16, 96, 96), 1.34),
+    ("resblock", (16, 48, 48), 1.40)])
+def test_training_shapes_compute_little_beyond_the_useful_work(
+        kind, shape, ceiling):
+    """Computed / useful conv MACs at the training shapes (C = 256), as
+    the kernels' tile lists give them, under each ceiling."""
+    work = (upsampler_work(*shape, 256) if kind == "upsampler"
+            else resblock_work(*shape, 256))
+    assert work[0] / work[1] <= ceiling
+
+
+def test_work_counts_follow_the_tile_lists():
+    """resblock_work / upsampler_work against the tile lists' own
+    counts: at [16, 48, 48] the resblock's 116 flat CTAs run 6 steps of
+    128 pixels each, the upsampler's 768 cluster tiles 2 CTAs x 128
+    pixels x 4 phases of 64 channels."""
+    comp, useful = resblock_work(16, 48, 48, 256)
+    assert resblock_schedule(16, 48, 48) == (0, 0, 0, 116, 320)
+    assert comp == 116 * 6 * 128 * 9 * 256 * 256
+    assert useful == 2 * 16 * 48 * 48 * 9 * 256 * 256
+    comp, useful = upsampler_work(16, 48, 48, 256)
+    assert comp == 768 * 2 * 128 * 256 * 9 * 256
+    assert useful == 16 * 48 * 48 * 1024 * 9 * 256
+    # line mode: rows / 2 + 1 conv1 and rows / 2 conv2 steps per CTA
+    comp, _ = resblock_work(2, 336, 510, 64)
+    assert comp == 126 * 49 * 128 * 9 * 64 * 64

@@ -1,8 +1,8 @@
 """The port's training ops against the JAX package, on the CPU.
 
 Inputs are made with numpy from a seed and handed to both.  Gradients of
-the kernels' differentiable forms (kernel forward, backward recomputed
-through the plain version) are held against ``jax.grad`` of the Pallas
+the kernels' differentiable forms (kernel forward, a backward of library
+convolution gradients) are held against ``jax.grad`` of the Pallas
 kernels in interpret mode, in f32, to the tolerance tests/test_pallas.py
 holds the Pallas kernels' own gradients to (atol 2e-5, rtol 1e-4: the
 same convs in f32 with another summation order).
@@ -28,8 +28,11 @@ from pesr_torch.models.generator import Generator
 from pesr_torch.models.kernel_apply import KernelApply, KernelTrainApply
 from pesr_torch.ops import kernels
 from pesr_torch.ops.kernels import (fused_resblock_train,
-                                    fused_upsampler_stage_train)
+                                    fused_upsampler_stage_train,
+                                    resblock_reference,
+                                    upsampler_stage_reference)
 from pesr_torch.ops.resize import imresize
+from torch.utils._python_dispatch import TorchDispatchMode
 
 T = torch.from_numpy
 GRAD_TOL = dict(atol=2e-5, rtol=1e-4)
@@ -93,6 +96,88 @@ def test_upsampler_train_grads_match_jax_pallas(b, h, w):
     got = [args[0].grad.numpy(), _hwio(args[1].grad), args[2].grad.numpy()]
     for g, r in zip(got, want):
         np.testing.assert_allclose(g, np.asarray(r), **GRAD_TOL)
+
+
+class _ConvCount(TorchDispatchMode):
+    """Counts the convolutions and convolution gradients dispatched."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = {"convolution": 0, "convolution_backward": 0}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name in self.counts:
+            self.counts[name] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _stage_inputs(kind, dtype, seed=4):
+    rng = np.random.default_rng(seed)
+    c, b, h, w = 8, 2, 7, 9
+    x = rng.standard_normal((b, h, w, c))
+    if kind == "resblock":
+        shapes = [(c, c, 3, 3), (c,), (c, c, 3, 3), (c,)]
+        cot = (b, h, w, c)
+    else:
+        shapes = [(4 * c, c, 3, 3), (4 * c,)]
+        cot = (b, 2 * h, 2 * w, c)
+    ins = [x] + [rng.standard_normal(s) * 0.1 for s in shapes]
+    return ([torch.tensor(a, dtype=dtype) for a in ins],
+            torch.tensor(rng.standard_normal(cot), dtype=dtype))
+
+
+def _plain(kind, x, *ws):
+    if kind == "resblock":
+        w1, b1, w2, b2 = ws
+        return resblock_reference(x, w1.permute(2, 3, 1, 0), b1,
+                                  w2.permute(2, 3, 1, 0), b2, 0.3)
+    w, b = ws
+    return upsampler_stage_reference(x, w.permute(2, 3, 1, 0), b)
+
+
+def _ours(kind, *args):
+    if kind == "resblock":
+        return fused_resblock_train(*args, res_scale=0.3)
+    return fused_upsampler_stage_train(*args)
+
+
+@pytest.mark.parametrize("kind,convs,conv_grads", [("resblock", 1, 2),
+                                                   ("upsampler", 0, 1)])
+def test_backward_recomputes_only_what_the_gradient_reads(kind, convs,
+                                                          conv_grads):
+    """The Functions' backward runs the ops JAX's compiled backward keeps:
+    the resblock recomputes conv1 (for the hidden activation and the
+    ReLU mask) but not conv2, whose output no gradient reads; the
+    upsampler is linear and recomputes nothing."""
+    ins, cot = _stage_inputs(kind, torch.float32)
+    leaves = [t.requires_grad_() for t in ins]
+    out = _ours(kind, *leaves)
+    with _ConvCount() as mode:
+        torch.autograd.grad(out, leaves, cot)
+    assert mode.counts == {"convolution": convs,
+                           "convolution_backward": conv_grads}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["resblock", "upsampler"])
+def test_backward_is_bitwise_autograd_of_the_plain_version(kind, dtype):
+    """On the CPU the backward makes the same convolution_backward calls
+    as autograd of the plain version, so its gradients are bitwise
+    those, in f32 and bf16; a frozen input gets none."""
+    ins, cot = _stage_inputs(kind, dtype)
+    ours = [t.clone().requires_grad_() for t in ins]
+    got = torch.autograd.grad(_ours(kind, *ours), ours, cot)
+    ref_in = [t.clone().requires_grad_() for t in ins]
+    want = torch.autograd.grad(_plain(kind, *ref_in), ref_in, cot)
+    for g, r in zip(got, want):
+        assert g.dtype == r.dtype and torch.equal(g, r)
+    part = [t.clone() for t in ins]
+    part[-1].requires_grad_()
+    part[-2].requires_grad_()
+    got = torch.autograd.grad(_ours(kind, *part), part[-2:], cot)
+    for g, r in zip(got, want[-2:]):
+        assert torch.equal(g, r)
 
 
 def test_train_functions_grad_only_what_is_asked():

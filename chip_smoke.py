@@ -96,21 +96,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               body conv, with planted faults that must fail its limits;
               ``run_training --phase qat`` (launches no kernel; steps/s,
               ``val_psnr`` of the fake-quant forward, ``val_pi``).
-8. quant    -- int8 W8A8 inference (``--quant int8``), whose int8 convs
-              are a library GEMM (``torch._int_mm`` over an int8 im2col),
-              as JAX's are ``lax.conv``: the int8 conv against its plain
-              float64 version bitwise (ragged shapes, chunked im2col, the
-              x4 body conv at the folded tile batch, the x8 int8 upfold),
-              timed with its bound and parts; one int8 block against the
-              bf16 ``fused_resblock``; the flagship int8 apply at x4 and
-              x8, ``_int_mm`` route against the plain route bitwise;
-              ``pesr_torch.test --quant int8`` on the train phase's
-              ``best/`` and the engine in turns with the bf16 folded path
-              (MP/s, agreement dB, uint8 against bf16, launches: none), a
-              planted scale fault the agreement must see; the guard's
-              fallback (``--quant_guard_db 200``: the bf16 kernel path)
-              and ``--compute_dtype float32`` (no kernel; within the
-              kernel path's uint8 limits).
+8. quant    -- int8 W8A8 inference (``--quant int8``): each residual
+              block is one launch of ``fused_resblock_int8``
+              (``csrc/resblock_int8.cu``, s8 ``wgmma``), the tail conv
+              and the x8 int8 upfold a library GEMM (``torch._int_mm``
+              over an int8 im2col), as JAX's are single ``lax.conv``s:
+              the int8 conv against its plain float64 version bitwise
+              (ragged shapes, chunked im2col, the x4 tail conv at the
+              folded tile batch, the x8 int8 upfold), timed with its
+              bound and parts; the int8 block kernel against its plain
+              version bitwise (ragged shapes, C = 64, 128, 256, the x4
+              and x8 tile batches), timed beside its bound, the plain
+              version and the block on the ``_int_mm`` route, and the
+              bf16 ``fused_resblock`` at the same shape; a calibrated
+              block and a planted fault in the kernel's arguments that
+              the bitwise check must see; the flagship int8 apply at x4
+              and x8, the card's route against the plain route bitwise
+              (32 kernel launches each); ``pesr_torch.test --quant int8``
+              on the train phase's ``best/`` and the engine in turns with
+              the bf16 folded path (MP/s, agreement dB, uint8 against
+              bf16, launches: 32 int8 blocks and one tail GEMM per
+              forward), a planted scale fault the agreement must see;
+              the guard's fallback (``--quant_guard_db 200``: the bf16
+              kernel path) and ``--compute_dtype float32`` (no kernel;
+              within the kernel path's uint8 limits).
 
 9. data     -- the train CLI's data sources and host-side options at
               the flagship recipe (folded training, the CLI's default):
@@ -154,8 +163,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               imports only ``pesr_torch.serving`` (bitwise the live
               engine; the resblock op's launches inside the program),
               MP/s in turns with the live engine, a ``batch="any"``
-              artifact on a batch of 1 and an int8 artifact, each
-              bitwise its live engine.
+              artifact on a batch of 1 and an int8 artifact (32 int8
+              block launches per forward inside it), each bitwise its
+              live engine.
 
 Prints a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or pesr_tpu.
@@ -416,7 +426,10 @@ def check_upsampler(bsz, h, w, c, seed, timing=False) -> dict:
     return res
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "UBLKCP", "SYNCS")
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UTMASTG", "UBLKCP", "SYNCS")
+# The tensor-core MMA each library must hold: bf16 wgmma (HGMMA), s8
+# wgmma (IGMMA) in the int8 block.
+SASS_MMA = {"resblock_int8": "IGMMA"}
 
 
 def sass_counts(lib) -> dict:
@@ -442,17 +455,21 @@ def phase_build() -> str:
           f"{', '.join(str(p) for p in libs.values())}", flush=True)
     for name, lib in libs.items():
         counts = sass_counts(lib)
-        serial = build.LOGS.get(name, "").count("C7512")
+        log = build.LOGS.get(name, "")
+        serial = log.count("C7512") + log.count("C7513")
         print(f"[build] SASS of lib{name}.so: {counts}; kernels whose wgmma "
-              f"ptxas serialized (C7512): {serial}", flush=True)
-        if counts["HGMMA"] == 0 or counts["UTMALDG"] == 0:
-            fail(f"lib{name}.so has no wgmma (HGMMA) or no TMA load "
+              f"ptxas serialized (C7512, C7513): {serial}", flush=True)
+        mma = SASS_MMA.get(name, "HGMMA")
+        if counts[mma] == 0 or counts["UTMALDG"] == 0:
+            fail(f"lib{name}.so has no wgmma ({mma}) or no TMA load "
                  f"(UTMALDG) in its SASS")
-        # ptxas serializes wgmma when the consumers run out of registers:
-        # the kernels still agree, but lose their asynchronous mainloop.
+        # ptxas serializes wgmma when the consumers run out of registers
+        # (C7512) or when it cannot prove that no other instruction writes
+        # a wgmma's registers while it runs (C7513): the kernels still
+        # agree, but lose their asynchronous mainloop.
         if serial:
             fail(f"ptxas serialized the wgmma of {serial} kernel(s) of "
-                 f"lib{name}.so (C7512)")
+                 f"lib{name}.so (C7512, C7513)")
     return gpu_name_power()
 
 
@@ -544,14 +561,16 @@ def phase_kernels(card: str) -> dict:
             "upsampler_stage1": up1}
 
 
-def print_time(name: str, r: dict, card: str) -> None:
-    """One timed check: kernel, plain version, cuDNN, bound."""
+def print_time(name: str, r: dict, card: str,
+               legend: str = "'plain' the f32 plain version, 'library' "
+                             "cuDNN") -> None:
+    """One timed check: kernel, plain version, library yardstick, bound."""
     spread = "  ".join(
         f"{k} {r[k]['ms']:.3f} ms [min {r[k]['min']:.3f}, max "
         f"{r[k]['max']:.3f}]" for k in ("time", "plain", "library"))
     print(f"  {name}: kernel {spread}  bound {r['bound_ms']:.3f} ms "
-          f"({r['bound_by']}); 'time' is the kernel, 'plain' the f32 "
-          f"plain version, 'library' cuDNN  [{card}]", flush=True)
+          f"({r['bound_by']}); 'time' is the kernel, {legend}  [{card}]",
+          flush=True)
 
 
 def print_times(rb: dict, up1: dict, up2: dict, card: str) -> None:
@@ -2415,7 +2434,9 @@ def check_int8_conv(card, b, h, w, c, n, k, pads, seed, timing=False,
         res[key]["ms"] for key in ("time", "plain", "library"))
     res["bound_ms"], res["bound_by"] = int8_conv_bound(
         m, k * k * c, n, x.numel() + wq.numel() + 4 * m * n)
-    print_time(name, res, card)
+    print_time(name, res, card, "here the _int_mm route; 'plain' the "
+               "float64 plain version, 'library' cuDNN bf16 on the same "
+               "integers")
     return res
 
 
@@ -2453,24 +2474,191 @@ def _int8_conv_parts(card: str, b: int, h: int, w: int) -> dict:
     return res
 
 
+def int8_block_args(bsz, h, w, c, seed):
+    """A bf16 carry ~ N(0, 1) and one int8 block's arguments on the card,
+    drawn on the CPU from ``seed``: int8 weights uniform in [-127, 127]
+    (OHWI), scales that put the quantized input at ~N(0, 40) (every
+    other channel's ``qin1`` = 64, so that products of bf16 values fall
+    on rint's ties), the requant's pre-round value at ~N(0, 60) (clipped
+    at 0 and 127; a quarter of its channels at ``mq`` = 2^-10, ``bq`` =
+    0.5, ties again) and y2 at ~N(0, 1).  Returns ``(y, ohwi, packed)``:
+    ``ohwi`` the plain version's arguments after ``y``, ``packed`` the
+    kernel's."""
+    import torch
+    from pesr_torch.ops.kernels.resblock_int8 import pack_int8_block_weights
+    g = torch.Generator().manual_seed(seed)
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(c, generator=g)
+
+    y = torch.randn((bsz, h, w, c), generator=g).to(torch.bfloat16)
+    w1, w2 = (torch.randint(-127, 128, (c, 3, 3, c), generator=g,
+                            dtype=torch.int8) for _ in range(2))
+    ch = torch.arange(c)
+    spread = (9 * c) ** 0.5 * 127 / 3 ** 0.5 * 40
+    qin1 = torch.where(ch % 2 == 0, torch.tensor(64.0), u(20.0, 60.0))
+    tie = ch % 4 == 1
+    mq = torch.where(tie, torch.tensor(2.0 ** -10), u(0.5, 1.5) * 60 / spread)
+    bq = torch.where(tie, torch.tensor(0.5), u(-20.0, 20.0))
+    m2 = u(0.5, 1.5) / spread
+    b2 = torch.randn(c, generator=g) * 0.1
+    vec = [t.float().cuda() for t in (qin1, mq, bq, m2, b2)]
+    w1, w2 = w1.cuda(), w2.cuda()
+    p1, p2 = pack_int8_block_weights(w1, w2)
+    return (y.cuda(), (w1, *vec[:3], w2, *vec[3:]),
+            (p1, *vec[:3], p2, *vec[3:]))
+
+
+def int8_block_bound(bsz, h, w, c):
+    """The int8 block's least time: two convs' int8 operations at
+    PEAK_INT8_OPS, or its bytes (the carry read and the output written
+    once, both weights, five f32 vectors) at PEAK_BYTES."""
+    m = bsz * h * w
+    return int8_conv_bound(2 * m, 9 * c, c, 4 * m * c + 2 * 9 * c * c
+                           + 5 * 4 * c)
+
+
+def check_int8_block(card, bsz, h, w, c, seed, res_scale=0.1,
+                     timing=False) -> dict:
+    """``fused_resblock_int8`` (the kernel) against
+    ``int8_resblock_reference`` (the plain version, float64 convs) on the
+    same inputs: equal bf16 outputs or the phase fails.  ``timing``: the
+    kernel, the plain version and, as the library yardstick, the same
+    block on the ``_int_mm`` route (``int8_conv_im2col``), with the
+    bound and the schedule."""
+    import torch
+    from pesr_torch.ops.int8_conv import int8_conv_im2col
+    from pesr_torch.ops.kernels.resblock_int8 import (
+        _max_clusters, fused_resblock_int8, int8_resblock_reference,
+        resblock_int8_schedule, resblock_int8_work)
+    y, plain, packed = int8_block_args(bsz, h, w, c, seed)
+    out = fused_resblock_int8(y, *packed, res_scale)
+    torch.cuda.synchronize()
+    ref = int8_resblock_reference(y, *plain, res_scale)
+    d = (out.float() - ref.float()).abs()
+    res = {"max_abs_err": float(d.max()), "differ": int((d > 0).sum()),
+           "shape": [bsz, h, w, c]}
+    name = f"fused_resblock_int8 [{bsz},{h},{w},{c}] res_scale {res_scale}"
+    print(f"  {name}: {res['differ']} of {d.numel()} values differ from "
+          f"the plain version, max |d| {res['max_abs_err']:.4g} (pass: 0, "
+          f"bitwise)", flush=True)
+    if not torch.equal(out, ref):
+        fail(f"{name} differs from its plain version")
+    if not timing:
+        return res
+    res["time"] = timed_ms(lambda: fused_resblock_int8(y, *packed,
+                                                       res_scale), 10)
+    res["plain"] = timed_ms(lambda: int8_resblock_reference(
+        y, *plain, res_scale), 1, 3, 1)
+    gemms = int8_conv_im2col.gemms
+    lib = int8_resblock_reference(y, *plain, res_scale,
+                                  conv=int8_conv_im2col)
+    res["library_gemms"] = int8_conv_im2col.gemms - gemms
+    if not torch.equal(lib, ref):
+        fail(f"{name}: the _int_mm route differs from the plain version")
+    res["library"] = timed_ms(lambda: int8_resblock_reference(
+        y, *plain, res_scale, conv=int8_conv_im2col), 5)
+    res["ms"], res["plain_ms"], res["library_ms"] = (
+        res[k]["ms"] for k in ("time", "plain", "library"))
+    res["bound_ms"], res["bound_by"] = int8_block_bound(bsz, h, w, c)
+    clusters = _max_clusters(c, y.device)
+    res["schedule"] = resblock_int8_schedule(bsz, h, w, clusters)
+    res["work"] = resblock_int8_work(bsz, h, w, c, clusters)
+    print_time(name, res, card, "'plain' the plain version (float64 "
+               "convs), 'library' the same block on the _int_mm route")
+    print(f"    library route: {res['library_gemms']} GEMMs, two im2cols and "
+          f"the f32 passes; schedule {res['schedule']}, {res['work']}; "
+          f"{100 * res['bound_ms'] / res['ms']:.1f}% of the bound",
+          flush=True)
+    return res
+
+
+def _int8_block_fault(int8, shape) -> dict:
+    """A calibrated flagship block on a carry ~ N(0, 1) at ``shape``:
+    block 0 through the kernel bitwise its plain version, then the planted
+    fault -- block 1's ``mq`` and ``bq`` in the kernel's arguments, block
+    0's in the plain version's -- which the bitwise check must fail."""
+    import torch
+    from pesr_torch.ops.kernels.resblock_int8 import (
+        fused_resblock_int8, int8_resblock_reference,
+        unpack_int8_block_weights)
+    y = torch.randn(shape, generator=torch.Generator().manual_seed(55)).to(
+        torch.bfloat16).cuda()
+    blk, other = int8.blocks[0], int8.blocks[1]
+    w1, w2 = unpack_int8_block_weights(blk.w1, blk.w2)
+    ref = int8_resblock_reference(y, w1, blk.qin1, blk.mq, blk.bq, w2,
+                                  blk.m2, blk.b2, int8.res_scale)
+    ok = torch.equal(fused_resblock_int8(y, *blk, int8.res_scale), ref)
+    bad = fused_resblock_int8(y, *blk._replace(mq=other.mq, bq=other.bq),
+                              int8.res_scale)
+    differ = int((bad != ref).sum())
+    print(f"  calibrated flagship block 0 at {list(shape)}: kernel bitwise "
+          f"the plain version: {ok}; planted fault (block 1's mq and bq in "
+          f"the kernel's arguments only): {differ} of {ref.numel()} values "
+          f"differ (caught when > 0)", flush=True)
+    if not ok:
+        fail("the calibrated int8 block differs from its plain version")
+    if differ == 0:
+        fail("the bitwise check does not see block 1's requant vectors in "
+             "block 0's kernel call")
+    return {"bitwise": ok, "fault_differ": differ}
+
+
+# The int8 block's ragged shapes (batch, H, W): widths at the edges of
+# its 62-column strips and 64-pixel rows, odd heights, batches 1-3.
+INT8_BLOCK_W = (1, 2, 5, 40, 61, 62, 63, 64, 65, 130)
+INT8_BLOCK_RAGGED = tuple((1 + i % 3, (5, 7, 9, 13, 3)[i % 5], w)
+                          for i, w in enumerate(INT8_BLOCK_W))
+
+
+def int8_block_checks(card) -> dict:
+    """The int8 block kernel against its plain version, bitwise, at the
+    ragged shapes for C = 64, 128, 256 (res_scale 0.1 and 1.0), then at
+    the x4 folded tile batch (timed) and the x8 tile batch."""
+    from pesr_torch.scales import fold_min_halo
+    print(f"[quant] fused_resblock_int8 (csrc/resblock_int8.cu) vs its "
+          f"plain version, bitwise, ragged shapes {INT8_BLOCK_RAGGED}",
+          flush=True)
+    for c in (64, 128, 256):
+        for i, (bsz, h, w) in enumerate(INT8_BLOCK_RAGGED):
+            check_int8_block(card, bsz, h, w, c, seed=7000 + 100 * c + i,
+                             res_scale=(0.1, 1.0)[i % 2])
+    (b, th, tw), _ = main_path_tile_batch(fold_min_halo(SCALE))
+    x8 = check_int8_block(card, *X8_TILE_BATCH, CHANNELS, seed=7001)
+    x4 = check_int8_block(card, b, th, tw, CHANNELS, seed=7002, timing=True)
+    return {"x4": x4, "x8": x8}
+
+
 @contextlib.contextmanager
 def _plain_int8_route():
-    """``quant_apply``'s int8 conv set to its plain float64 version while
-    active (the ``_int_mm`` route otherwise)."""
+    """``quant_apply``'s int8 conv set to its plain float64 version and
+    its int8 block to the block's plain version (float64 convs) while
+    active (the ``_int_mm`` route and the kernel otherwise)."""
     from pesr_torch.models import quant_apply
     from pesr_torch.ops.int8_conv import int8_conv_reference
-    real = quant_apply.int8_conv
+    from pesr_torch.ops.kernels.resblock_int8 import (
+        int8_resblock_reference, unpack_int8_block_weights)
+
+    def plain_block(y, w1, qin1, mq, bq, w2, m2, b2, res_scale):
+        a, b = unpack_int8_block_weights(w1, w2)
+        return int8_resblock_reference(y, a, qin1, mq, bq, b, m2, b2,
+                                       res_scale)
+
+    real = quant_apply.int8_conv, quant_apply.fused_resblock_int8
     quant_apply.int8_conv = int8_conv_reference
+    quant_apply.fused_resblock_int8 = plain_block
     try:
         yield
     finally:
-        quant_apply.int8_conv = real
+        quant_apply.int8_conv, quant_apply.fused_resblock_int8 = real
 
 
 def _quant_apply_bitwise(scale: int, seed: int) -> dict:
     """The flagship int8 apply at ``scale`` (random seed weights,
     calibrated on 4 synthetic 32-px crops) on a 40 x 40 LR tile: uint8
-    output of the _int_mm route == the plain route, bitwise."""
+    output of the card's route (the int8 block kernel, ``_int_mm`` for
+    the tail and the x8 upfold) == the plain route, bitwise, with one
+    kernel launch per block."""
     import numpy as np
     import torch
     from pesr_torch.data.datasets import SyntheticImages
@@ -2478,22 +2666,30 @@ def _quant_apply_bitwise(scale: int, seed: int) -> dict:
     from pesr_torch.models.generator import Generator
     from pesr_torch.models.quant_apply import default_calib_tiles, \
         int8_inference
+    from pesr_torch.ops.kernels import fused_resblock_int8
     gen = Generator(scale, BLOCKS, CHANNELS, seed=seed)
     img = SyntheticImages(1, 160, 160, seed=seed).get(0)
     apply_fn = int8_inference(gen, default_calib_tiles([img], 32, 4))
     x = normalize_uint8(torch.from_numpy(img[None, :40, :40].copy()).cuda())
+    launches = fused_resblock_int8.launches
     ours = apply_fn.uint8_variant(x)
+    launches = fused_resblock_int8.launches - launches
     with _plain_int8_route():
         ref = apply_fn.uint8_variant(x)
     d = (ours.int() - ref.int()).abs()
     res = {"upfold": "int8" if isinstance(apply_fn.upfold, dict) else "bf16",
-           "max_lsb": int(d.max()), "shape": tuple(ours.shape)}
+           "max_lsb": int(d.max()), "shape": tuple(ours.shape),
+           "launches": launches}
     print(f"  x{scale} {BLOCKS}x{CHANNELS} int8 apply (upfold {res['upfold']}"
-          f") on [1,40,40,3] -> {res['shape']}: _int_mm route vs plain "
-          f"route, uint8 max |d| {res['max_lsb']} (pass: 0)", flush=True)
+          f") on [1,40,40,3] -> {res['shape']}: card route ({launches} "
+          f"fused_resblock_int8 launches) vs plain route, uint8 max |d| "
+          f"{res['max_lsb']} (pass: 0)", flush=True)
     if res["max_lsb"] != 0 or not torch.equal(ours, ref):
-        fail(f"the x{scale} int8 apply's _int_mm route differs from its "
+        fail(f"the x{scale} int8 apply's card route differs from its "
              f"plain route")
+    if launches != BLOCKS:
+        fail(f"the x{scale} int8 apply launched the int8 block kernel "
+             f"{launches} times, not {BLOCKS}")
     del gen, apply_fn
     torch.cuda.empty_cache()
     return res
@@ -2501,7 +2697,8 @@ def _quant_apply_bitwise(scale: int, seed: int) -> dict:
 
 def phase_quant(card: str, best: str, workdir: str) -> dict:
     """int8 W8A8 inference (``--quant int8``): the int8 conv against its
-    plain version and timed, one int8 block against the bf16 kernel, the
+    plain version and timed, the int8 block kernel against its plain
+    version (bitwise) and timed, a planted fault in its arguments, the
     whole apply bitwise, the test CLI and the engine on ``best/`` (MP/s
     in turns with the bf16 folded path, agreement, launches), the guard's
     fallback, a planted scale fault, and ``--compute_dtype float32``."""
@@ -2527,7 +2724,7 @@ def phase_quant(card: str, best: str, workdir: str) -> dict:
     for i, case in enumerate(INT8_RAGGED):
         check_int8_conv(card, *case, seed=40 + i, max_bytes=3000)
     (b, th, tw), grid = main_path_tile_batch(fold_min_halo(SCALE))
-    print(f"[quant] the x{SCALE} body conv at the folded tile batch "
+    print(f"[quant] the x{SCALE} tail conv at the folded tile batch "
           f"[{b},{th},{tw},{CHANNELS}] (grid {grid}) and the x8 int8 upfold "
           f"at {list(X8_TILE_BATCH)}", flush=True)
     res["conv"] = check_int8_conv(card, b, th, tw, CHANNELS, CHANNELS, 3,
@@ -2538,8 +2735,9 @@ def phase_quant(card: str, best: str, workdir: str) -> dict:
                                          timing=True)
     torch.cuda.empty_cache()
 
-    print(f"[quant] one int8 residual block vs the bf16 fused_resblock at "
-          f"[{b},{th},{tw},{CHANNELS}]", flush=True)
+    res["int8_block"] = int8_block_checks(card)
+    print(f"[quant] the bf16 fused_resblock at the same tile batch "
+          f"[{b},{th},{tw},{CHANNELS}], for comparison", flush=True)
     res["resblock"] = check_resblock(b, th, tw, CHANNELS, 0.1, seed=52,
                                      timing=True)
     print_time(f"fused_resblock [{b},{th},{tw},{CHANNELS}]", res["resblock"],
@@ -2549,23 +2747,12 @@ def phase_quant(card: str, best: str, workdir: str) -> dict:
     img = SyntheticImages(1, LR_H * SCALE, LR_W * SCALE, seed=7).get(0)
     int8 = int8_inference(gen, default_calib_tiles(
         [host_bicubic_downsample(img, SCALE)]))
-    y = torch.randn((b, th, tw, CHANNELS), device="cuda").bfloat16()
-    res["block"] = timed_ms(lambda: int8.block(y, 0), 5)
-    m = b * th * tw
-    res["block_bound_ms"], res["block_bound_by"] = int8_conv_bound(
-        2 * m, 9 * CHANNELS, CHANNELS, 4 * m * CHANNELS
-        + 2 * 9 * CHANNELS * CHANNELS)
-    blk = res["block"]
-    print(f"  int8 block [{b},{th},{tw},{CHANNELS}]: {blk['ms']:.3f} ms [min "
-          f"{blk['min']:.3f}, max {blk['max']:.3f}], bound "
-          f"{res['block_bound_ms']:.3f} ms ({res['block_bound_by']}); bf16 "
-          f"fused_resblock {res['resblock']['ms']:.3f} ms [{card}]",
-          flush=True)
-    del y, int8, gen
+    res["block_fault"] = _int8_block_fault(int8, (b, th, tw, CHANNELS))
+    del int8, gen
     torch.cuda.empty_cache()
 
-    print(f"[quant] whole {BLOCKS}x{CHANNELS} int8 apply, _int_mm route vs "
-          f"plain route", flush=True)
+    print(f"[quant] whole {BLOCKS}x{CHANNELS} int8 apply, the card's route "
+          f"vs the plain route", flush=True)
     res["apply_x4"] = _quant_apply_bitwise(4, seed=0)
     res["apply_x8"] = _quant_apply_bitwise(8, seed=1)
     if res["apply_x8"]["upfold"] != "int8":
@@ -2590,7 +2777,8 @@ def phase_quant(card: str, best: str, workdir: str) -> dict:
                 pngs = len(os.listdir(summary["out_dir"]))
         finally:
             cli.load_eval_set = real
-        counts = kernels.launch_counts()
+        counts = {**kernels.launch_counts(),
+                  "fused_resblock_int8": kernels.fused_resblock_int8.launches}
         print(f"  pesr_torch.test {' '.join(extra)}: {summary['precision']}, "
               f"{summary['forwards']} forwards, launches {counts}, "
               f"{summary['mp_per_s']:.2f} MP/s, PSNR {summary['psnr']:.2f} dB,"
@@ -2602,9 +2790,11 @@ def phase_quant(card: str, best: str, workdir: str) -> dict:
     print(f"[quant] python -m pesr_torch.test --quant int8 on the train "
           f"phase's best/ ({N_IMAGES} LR images {LR_H}x{LR_W})", flush=True)
     summary, counts = run_cli(["--quant", "int8"], "--quant int8")
-    if summary["precision"] != "int8-w8a8" or any(counts.values()):
+    want = {"fused_resblock": 0, "fused_upsampler_stage": 0,
+            "fused_resblock_int8": BLOCKS * summary["forwards"]}
+    if summary["precision"] != "int8-w8a8" or counts != want:
         fail(f"--quant int8 served {summary['precision']} with launches "
-             f"{counts}")
+             f"{counts}, expected {want}")
     res["cli_mp_per_s"] = summary["mp_per_s"]
 
     opts = opts_from_args(base + ["--quant", "int8"])
@@ -2622,11 +2812,18 @@ def phase_quant(card: str, best: str, workdir: str) -> dict:
     fwd, gemms = int8.forwards - fwd, int8_conv_im2col.gemms - gemms
     res["int8_launches"] = {k: v // max(fwd, 1) for k, v in
                             kernels.launch_counts().items()}
-    print(f"  int8 engine: {fwd} forwards, hand-written kernel launches per "
-          f"forward {res['int8_launches']} (expected 0), _int_mm GEMMs per "
-          f"forward {gemms / max(fwd, 1):.0f}", flush=True)
-    if any(kernels.launch_counts().values()) or fwd < 1:
-        fail(f"the int8 engine launched {kernels.launch_counts()}")
+    res["int8_block_launches"] = kernels.fused_resblock_int8.launches
+    res["int8_forwards"] = fwd
+    print(f"  int8 engine: {fwd} forwards, bf16 kernel launches per forward "
+          f"{res['int8_launches']} (expected 0), fused_resblock_int8 "
+          f"launches {res['int8_block_launches']} (expected {BLOCKS} per "
+          f"forward), _int_mm GEMMs per forward {gemms / max(fwd, 1):.0f} "
+          f"(expected 1: the tail)", flush=True)
+    if (any(kernels.launch_counts().values()) or fwd < 1
+            or res["int8_block_launches"] != BLOCKS * fwd or gemms != fwd):
+        fail(f"the int8 engine launched {kernels.launch_counts()}, "
+             f"{res['int8_block_launches']} int8 blocks and {gemms} GEMMs "
+             f"in {fwd} forwards")
     srs["bf16"] = engines["bf16"].upscale_many(lrs, N_IMAGES)
     mp = sum(sr.shape[0] * sr.shape[1] for sr in srs["int8"]) / 1e6
     times = {"int8": [], "bf16": []}
@@ -2657,8 +2854,9 @@ def phase_quant(card: str, best: str, workdir: str) -> dict:
         lambda: engines["int8"].upscale_many(lrs, N_IMAGES), card, top=10)
 
     faulty = int8_inference(gen, calib)
-    c2a, c2b = faulty.blocks[0][4], faulty.blocks[1][4]
-    c2a["m"], c2b["m"] = c2b["m"], c2a["m"]
+    b0, b1 = faulty.blocks[0], faulty.blocks[1]
+    faulty.blocks[0], faulty.blocks[1] = (b0._replace(m2=b1.m2),
+                                          b1._replace(m2=b0.m2))
     res["fault_db"] = int8_agreement_db(faulty, gen, calib, bf16)
     print(f"  planted fault (conv2 dequant scales of blocks 0 and 1 swapped):"
           f" agreement {res['fault_db']:.2f} dB vs healthy "
@@ -3633,13 +3831,15 @@ def phase_serve(card: str, workdir: str) -> dict:
     ``pesr_torch.serving`` (bitwise the live engine, 32 resblock launches
     per tile-batch forward inside the program), MP/s in turns with the
     live engine, a ``batch="any"`` artifact on a batch of 1, and an int8
-    artifact bitwise its live engine."""
+    artifact bitwise its live engine (32 int8 block launches per
+    forward inside it)."""
     import numpy as np
     import torch
     from pesr_torch.models.generator import Generator
     from pesr_torch.models.kernel_apply import KernelApply
     from pesr_torch.models.quant_apply import (default_calib_tiles,
                                                int8_inference)
+    from pesr_torch.ops import kernels
     from pesr_torch.ops.tiling import BatchTiledUpscaler
     from pesr_torch.serving import export_upscaler, load_upscaler
     t0 = time.perf_counter()
@@ -3713,15 +3913,30 @@ def phase_serve(card: str, workdir: str) -> dict:
     eng8 = BatchTiledUpscaler(int8_inference(gen, default_calib_tiles(lrs)),
                               SCALE, "auto", 8)
     p8 = os.path.join(workdir, "int8.pesr")
-    export_upscaler(eng8, N_IMAGES, LR_H, LR_W, p8,
-                    precision_path="int8-w8a8")
-    ok8 = np.array_equal(load_upscaler(p8)(batch), eng8.upscale_batch(batch))
-    print(f"  int8 artifact bitwise its live engine: {ok8}", flush=True)
+    meta8 = export_upscaler(eng8, N_IMAGES, LR_H, LR_W, p8,
+                            precision_path="int8-w8a8")
+    served8 = load_upscaler(p8)
+    served8(batch)                             # first call: warm up
+    kernels.reset_launch_counts()
+    got8 = served8(batch)
+    launches8 = {**kernels.launch_counts(),
+                 "fused_resblock_int8": kernels.fused_resblock_int8.launches}
+    fwd8 = meta8["grid"]["nh"] * meta8["grid"]["nw"]
+    want8 = {"fused_resblock": 0, "fused_upsampler_stage": 0,
+             "fused_resblock_int8": BLOCKS * fwd8}
+    ok8 = np.array_equal(got8, eng8.upscale_batch(batch))
+    print(f"  int8 artifact bitwise its live engine: {ok8}; launches inside "
+          f"the program {launches8} over {fwd8} tile-batch forward(s) "
+          f"(expected {want8})", flush=True)
     if not ok8:
         fail("the int8 artifact differs from its live engine")
+    if launches8 != want8:
+        fail("the int8 artifact did not run the int8 block kernel once per "
+             "block")
     print(f"[serve] phase took {time.perf_counter() - t0:.1f} s", flush=True)
     return {"rates": rates, "launches": info["launches"],
-            "forwards": forwards, "export_s": t_export}
+            "forwards": forwards, "export_s": t_export,
+            "int8_launches": launches8, "int8_forwards": fwd8}
 
 
 def main() -> int:
@@ -3801,10 +4016,30 @@ def main() -> int:
          "train_rows": [r for r in train_res["rows"]
                         if r["kernel"].startswith(name)]}
         for name, (src, rep) in sources.items()]}
+    # The int8 block replaces XLA's fusion of JAX's int8 body_fn (no
+    # pallas_call); its path is the quant phase's int8 engine run.
+    blk = quant_res["int8_block"]
+    line["kernels"].append({
+        "name": "fused_resblock_int8", "route": "cuda",
+        "source": "pesr_torch/csrc/resblock_int8.cu",
+        "replaces": "pesr_tpu/models/quant_apply.py:235",
+        "launches": quant_res["int8_block_launches"],
+        "max_abs_err": blk["x4"]["max_abs_err"], "ms": blk["x4"]["ms"],
+        "plain_ms": blk["x4"]["plain_ms"], "bound_ms": blk["x4"]["bound_ms"],
+        "bound_by": blk["x4"]["bound_by"],
+        "library_ms": blk["x4"]["library_ms"],
+        "shape": blk["x4"]["shape"],
+        "int8_forwards": quant_res["int8_forwards"],
+        "x8_max_abs_err": blk["x8"]["max_abs_err"],
+        "planted_fault_values_differ": quant_res["block_fault"][
+            "fault_differ"],
+        "artifact_launches_per_forward":
+            serve_res["int8_launches"]["fused_resblock_int8"]
+            / serve_res["int8_forwards"]})
     conv = quant_res["conv"]
-    print(f"int8 conv (library route, torch._int_mm; not a kernel port): "
-          f"{conv['ms']:.3f} ms at the x4 body shape, bound "
-          f"{conv['bound_ms']:.3f} ms; x8 upfold "
+    print(f"int8 tail conv and x8 int8 upfold (library route, torch._int_mm;"
+          f" not a kernel port): {conv['ms']:.3f} ms at the x4 tail shape, "
+          f"bound {conv['bound_ms']:.3f} ms; x8 upfold "
           f"{quant_res['upfold_conv']['ms']:.3f} ms, bound "
           f"{quant_res['upfold_conv']['bound_ms']:.3f} ms", flush=True)
     print(json.dumps(line), flush=True)

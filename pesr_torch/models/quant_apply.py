@@ -11,27 +11,34 @@ Scheme (per-channel symmetric W8A8, bf16 residual carry), as in JAX:
 * weights are int8 per OUTPUT channel of the folded kernel, ``s_w[o] =
   max |w'[.., o]| / 127``; the arithmetic is JAX's float64 numpy, so the
   integers and the float32 vectors are bitwise JAX's;
-* each int8 conv accumulates in int32 (``ops/int8_conv.py``: a float64
-  conv on the CPU, ``torch._int_mm`` over an int8 im2col on the card)
-  and dequantizes with one f32 multiply-add, ``acc * s_w + bias``;
+* each int8 conv accumulates in int32 and dequantizes with one f32
+  multiply, then an add, ``acc * s_w + bias``;
 * conv1's int32 accumulator goes straight to conv2's int8 input through
   the f32 vectors ``m1 qin2`` and ``bias1 qin2`` (ReLU commutes with the
   positive scale);
 * the residual carry, the head conv and (below x8) the folded upsampler
   stay bf16.
 
+Each residual block is one call of
+:func:`~pesr_torch.ops.kernels.resblock_int8.fused_resblock_int8` (on the
+card one launch of the hand-written s8 ``wgmma`` kernel, on the CPU its
+plain version), on weights packed once here.  The tail conv and the x8
+int8 upfold, single ``lax.conv``s in JAX, are single
+:func:`~pesr_torch.ops.int8_conv.int8_conv` calls (a float64 conv on the
+CPU, ``torch._int_mm`` over an int8 im2col on the card).
+
 The int8 path always folds the upsampler (``models/fold.py``), so its
 apply carries the fold's ``min_halo``.  Calibration is a bf16 forward
 through plain convs (cuDNN on the card, as JAX's ``lax.conv``): the
-fused resblock kernel does not expose the ReLU map conv2 reads.  No
-hand-written kernel runs on this path; the guard's bf16 fallback is the
-folded :class:`~pesr_torch.models.kernel_apply.KernelApply`.
+fused resblock kernel does not expose the ReLU map conv2 reads.  The
+guard's bf16 fallback is the folded
+:class:`~pesr_torch.models.kernel_apply.KernelApply`.
 """
 
 from __future__ import annotations
 
 import sys
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +50,8 @@ from pesr_torch.models.generator import Generator
 from pesr_torch.models.kernel_apply import (Float32Apply, KernelApply,
                                             generator_convs)
 from pesr_torch.ops.int8_conv import int8_conv
+from pesr_torch.ops.kernels.resblock_int8 import (  # noqa: F401
+    fused_resblock_int8, pack_int8_block_weights, quantize_act, requant)
 from pesr_torch.ops.pixel_shuffle import pixel_shuffle
 from pesr_torch.scales import fold_min_halo
 
@@ -182,22 +191,18 @@ def quantize_generator_params(sd: Dict[str, torch.Tensor],
 # --------------------------------------------------------------------------
 
 
-def quantize_act(x: torch.Tensor, qin: torch.Tensor) -> torch.Tensor:
-    """``clip(round(x f32 * qin), -127, 127)`` as int8 (round half to
-    even, as ``jnp.round``)."""
-    return torch.clamp(torch.round(x.float() * qin), -127, 127).to(
-        torch.int8)
-
-
-def requant(acc1: torch.Tensor, mq: torch.Tensor, bq: torch.Tensor
-            ) -> torch.Tensor:
-    """conv1's int32 accumulator -> conv2's int8 input:
-    ``clip(round(max(acc1 f32 * mq + bq, 0)))`` with the f32 vectors ``mq
-    = m1 qin2`` and ``bq = bias1 qin2``; a multiply, then an add (two
-    roundings, as XLA computes it)."""
-    t = acc1.float() * mq + bq
-    return torch.clamp(torch.round(torch.clamp_min(t, 0.0)), -127, 127).to(
-        torch.int8)
+class Int8Block(NamedTuple):
+    """One residual block's arguments of
+    :func:`~pesr_torch.ops.kernels.resblock_int8.fused_resblock_int8`:
+    the packed int8 weights and the f32 vectors (conv1's input scale, the
+    fused requant's ``m1 qin2`` and ``bias1 qin2``, conv2's dequant)."""
+    w1: torch.Tensor
+    qin1: torch.Tensor
+    mq: torch.Tensor
+    bq: torch.Tensor
+    w2: torch.Tensor
+    m2: torch.Tensor
+    b2: torch.Tensor
 
 
 class Int8Apply:
@@ -212,15 +217,16 @@ class Int8Apply:
                  device) -> None:
         self.scale, self.pads, self.forwards = scale, q["pads"], 0
         dev = torch.device(device)
-        self.res_scale = torch.full((), res_scale, dtype=torch.bfloat16,
-                                    device=dev)
+        self.res_scale = res_scale  # the block rounds it to bf16
         self.head = tuple(t.to(dev) for t in q["head"])
         self.blocks = []
         for c1, c2 in q["body"]:
             a, b = self._conv(c1, dev), self._conv(c2, dev)
+            w1, w2 = pack_int8_block_weights(a["w"], b["w"])
             # the fused requant's vectors, formed in f32 as JAX does
-            self.blocks.append((a["w"], a["m"] * b["qin"],
-                                a["bias"] * b["qin"], a["qin"], b))
+            self.blocks.append(Int8Block(w1, a["qin"], a["m"] * b["qin"],
+                                         a["bias"] * b["qin"], w2, b["m"],
+                                         b["bias"]))
         self.tail = self._conv(q["tail"], dev)
         up = q["upfold"]
         self.upfold = (self._conv(up, dev) if isinstance(up, dict)
@@ -246,12 +252,9 @@ class Int8Apply:
 
     def block(self, y: torch.Tensor, i: int) -> torch.Tensor:
         """Residual block ``i`` on the bf16 carry ``y``: int8 conv1, the
-        fused requant, int8 conv2, dequant, ``y + bf16(res_scale) y2``."""
-        w1, mq, bq, qin1, c2 = self.blocks[i]
-        acc1 = int8_conv(quantize_act(y, qin1), w1)
-        acc2 = int8_conv(requant(acc1, mq, bq), c2["w"])
-        y2 = (acc2.float() * c2["m"] + c2["bias"]).to(torch.bfloat16)
-        return y + self.res_scale * y2
+        fused requant, int8 conv2, dequant, ``y + bf16(res_scale) y2``,
+        as one :func:`fused_resblock_int8`."""
+        return fused_resblock_int8(y, *self.blocks[i], self.res_scale)
 
     def _trunk(self, x: torch.Tensor) -> torch.Tensor:
         """Head, the int8 body, the int8 tail + skip and the upfold:

@@ -20,9 +20,11 @@ axes (the folded upsampler's asymmetric pads).
 * :func:`int8_conv` runs the plain version for a CPU tensor and the
   im2col route for a CUDA tensor; any other device raises.
 
-This is a library GEMM, not a hand-written kernel: an int8 residual
-block on Hopper (s8 ``wgmma``, quantize on load, the requant in the
-epilogue) is later work.
+The int8 path runs it only for its single convs, the tail and the x8
+int8 upfold (single ``lax.conv``s in JAX): a library GEMM, not a
+hand-written kernel.  Each residual block is one launch of the
+hand-written s8 ``wgmma`` kernel
+(:mod:`pesr_torch.ops.kernels.resblock_int8`), which needs no im2col.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 # The im2col of one chunk stays under this many bytes.  At the folded x4
-# tile batch [2, 342, 516, 256] one body conv's im2col is 813 MB (one
+# tile batch [2, 342, 516, 256] the tail conv's im2col is 813 MB (one
 # chunk); the x8 upfold's K = 81 x 256 would need several GB unchunked.
 IM2COL_MAX_BYTES = 1 << 30
 # torch._int_mm on CUDA takes M > 16 rows and K, N multiples of 8.

@@ -1,7 +1,11 @@
 """Hand-written Hopper kernels (``pesr_torch/csrc``), each with its plain
-PyTorch version beside it and a launch counter on its wrapper, and a
-differentiable form (``*_train``: the kernel forward, a backward of
-library convolution gradients that recomputes only what they read)."""
+PyTorch version beside it and a launch counter on its wrapper; the two
+bf16 kernels also have a differentiable form (``*_train``: the kernel
+forward, a backward of library convolution gradients that recomputes
+only what they read).  :func:`launch_counts` gives the bf16 kernels'
+counters; the int8 block's (an inference-only path) is
+``fused_resblock_int8.launches``, which :func:`reset_launch_counts`
+resets too."""
 
 from pesr_torch.ops.kernels.resblock import (fused_resblock,  # noqa: F401
                                              fused_resblock_train,
@@ -10,11 +14,14 @@ from pesr_torch.ops.kernels.resblock import (fused_resblock,  # noqa: F401
 from pesr_torch.ops.kernels.upsampler import (  # noqa: F401
     fused_upsampler_stage, fused_upsampler_stage_train, pack_upsampler_stage,
     upsampler_stage_reference)
+from pesr_torch.ops.kernels.resblock_int8 import (  # noqa: F401
+    fused_resblock_int8, int8_resblock_reference, pack_int8_block_weights)
 
 
 def reset_launch_counts() -> None:
     fused_resblock.launches = 0
     fused_upsampler_stage.launches = 0
+    fused_resblock_int8.launches = 0
 
 
 def launch_counts() -> dict:

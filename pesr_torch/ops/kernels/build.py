@@ -27,7 +27,7 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-KERNELS = ("resblock", "upsampler")
+KERNELS = ("resblock", "upsampler", "resblock_int8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the pesr_torch port on one NVIDIA GPU (built for the H100).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--int8-first-form DIR]
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               (set-up), print ptxas' registers / spills and the SASS
               evidence (counts of HGMMA, TMA and SYNCS instructions from
               cuobjdump; a library without HGMMA or TMA loads fails, and
-              so does one whose wgmma ptxas serialized), print the
+              so does one whose wgmma ptxas serialized, and the int8
+              block's library if ptxas reports spill bytes), print the
               card's name and power limit.
 2. kernels -- each kernel against its plain PyTorch version (f32, TF32
               off, same bf16-rounded inputs): ragged shapes at the edges
@@ -108,7 +109,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               version bitwise (ragged shapes, C = 64, 128, 256, the x4
               and x8 tile batches), timed beside its bound, the plain
               version and the block on the ``_int_mm`` route, and the
-              bf16 ``fused_resblock`` at the same shape; a calibrated
+              bf16 ``fused_resblock`` at the same shape, and, given
+              ``--int8-first-form DIR``, in turns with the kernel's
+              first form built from that checkout; a calibrated
               block and a planted fault in the kernel's arguments that
               the bitwise check must see; the flagship int8 apply at x4
               and x8, the card's route against the plain route bitwise
@@ -186,6 +189,7 @@ import time
 # H100 SXM data sheet: dense bf16 tensor-core peak and HBM3 bandwidth.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 LR_H, LR_W, N_IMAGES = 336, 510, 2   # DIV2K-validation-sized LR, x4
 BLOCKS, CHANNELS, SCALE = 32, 256, 4
@@ -446,13 +450,71 @@ def sass_counts(lib) -> dict:
             for op in SASS_OPS}
 
 
-def phase_build() -> str:
+# The int8 block kernel's first form, from another checkout given as
+# ``--int8-first-form DIR`` (its ``pesr_torch/csrc``, weights in natural
+# output-channel order): built beside the port's libraries and timed in
+# turns with the port's kernel (int8_block_turns).  Without the option
+# that comparison is not run.
+_int8_first_form = {}
+
+
+def nvcc_first_form(checkout: str, out_dir: str) -> str:
+    """``checkout``'s ``pesr_torch/csrc/resblock_int8.cu``, compiled with
+    the port's nvcc flags against that checkout's headers only, into
+    ``out_dir``.  Returns the library's path; a failed build fails the
+    run."""
+    from pesr_torch.ops.kernels import build
+    csrc = os.path.join(checkout, "pesr_torch", "csrc")
+    lib = os.path.join(out_dir, "libint8_block_first_form.so")
+    proc = subprocess.run(
+        [build._nvcc(), *build.NVCC_FLAGS, "-I", csrc, "-o", lib,
+         os.path.join(csrc, "resblock_int8.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode:
+        fail(f"nvcc failed on the int8 block's first form in {csrc}:\n"
+             f"{proc.stdout}")
+    return lib
+
+
+def ptxas_spills(log: str) -> list:
+    """(spill store bytes, spill load bytes) of every kernel in a ptxas
+    ``-v`` log."""
+    import re
+    return [(int(a), int(b)) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
+
+
+def phase_build(first_form: str = None) -> str:
+    """Build the port's kernels (and, given a checkout, the int8 block's
+    first form from it, in parallel) and check what ptxas and the SASS
+    show.  Returns the card's name and power limit."""
+    import atexit
+    import concurrent.futures
+    import shutil
     from pesr_torch.ops.kernels import build
     t0 = time.perf_counter()
-    libs = build.build_all(verbose=True)
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        if first_form:
+            ff_dir = tempfile.mkdtemp(prefix="pesr_int8_first_form_")
+            atexit.register(shutil.rmtree, ff_dir, True)
+            ff = ex.submit(nvcc_first_form, first_form, ff_dir)
+        libs = build.build_all(verbose=True)
+        if first_form:
+            _int8_first_form["path"] = ff.result()
     print(f"[build] {len(libs)} kernel libraries in "
           f"{time.perf_counter() - t0:.1f} s: "
-          f"{', '.join(str(p) for p in libs.values())}", flush=True)
+          f"{', '.join(str(p) for p in libs.values())}"
+          + (f"; the int8 block's first form from {first_form}: "
+             f"{_int8_first_form['path']}" if first_form else ""),
+          flush=True)
+    if "resblock_int8" not in build.LOGS:
+        fail("no ptxas log of libresblock_int8.so (a library built before "
+             "its log was kept: delete pesr_torch/_build/ to rebuild it)")
+    spills = ptxas_spills(build.LOGS["resblock_int8"])
+    print(f"[build] ptxas spill bytes (stores, loads) of the int8 block's "
+          f"kernels: {spills} (pass: all 0)", flush=True)
+    if len(spills) != 3 or any(a or b for a, b in spills):
+        fail(f"ptxas spilled registers in libresblock_int8.so: {spills}")
     for name, lib in libs.items():
         counts = sass_counts(lib)
         log = build.LOGS.get(name, "")
@@ -2626,7 +2688,76 @@ def int8_block_checks(card) -> dict:
     (b, th, tw), _ = main_path_tile_batch(fold_min_halo(SCALE))
     x8 = check_int8_block(card, *X8_TILE_BATCH, CHANNELS, seed=7001)
     x4 = check_int8_block(card, b, th, tw, CHANNELS, seed=7002, timing=True)
+    if _int8_first_form:
+        x4["turns"] = int8_block_turns(card, b, th, tw, CHANNELS, seed=7002)
+    else:
+        x4["turns"] = None
+        print("  fused_resblock_int8 in turns with its first form: not run "
+              "(give --int8-first-form DIR, a checkout holding it)",
+              flush=True)
     return {"x4": x4, "x8": x8}
+
+
+def int8_block_turns(card, bsz, h, w, c, seed, rounds=12,
+                     iters=10) -> dict:
+    """The first form of the kernel (``--int8-first-form``, built by
+    phase_build) and the port's, in turns on the same inputs, each first
+    held bitwise to the plain version: ms per launch, median [min, max]
+    of ``rounds`` timed runs of ``iters`` launches each (CUDA events)."""
+    import ctypes
+    import torch
+    from pesr_torch.ops.kernels.resblock_int8 import (
+        _ARGTYPES, _bf16_value, fused_resblock_int8, int8_resblock_reference,
+        resblock_int8_schedule)
+    y, plain, packed = int8_block_args(bsz, h, w, c, seed)
+    ref = int8_resblock_reference(y, *plain, 0.1)
+    dll = ctypes.CDLL(_int8_first_form["path"])
+    fn = dll.pesr_fused_resblock_int8
+    fn.argtypes, fn.restype = list(_ARGTYPES), ctypes.c_int
+    sched = resblock_int8_schedule(bsz, h, w,
+                                   dll.pesr_resblock_int8_max_clusters(c))
+    # the first form takes both weights in natural output order
+    v1_args = (plain[0].permute(1, 2, 0, 3).contiguous(), *plain[1:4],
+               plain[4].permute(1, 2, 0, 3).contiguous(), *plain[5:])
+    out = torch.empty_like(y)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def first_form():
+        rc = fn(y.data_ptr(), *(t.data_ptr() for t in v1_args[:4]),
+                *(t.data_ptr() for t in v1_args[4:]), out.data_ptr(), bsz, h,
+                w, c, _bf16_value(0.1), sched.rows, sched.strips, sched.segs,
+                sched.ctas, stream)
+        if rc:
+            fail(f"the int8 block's first form failed to launch: CUDA "
+                 f"error {rc}")
+        return out
+
+    runs = {"first_form": first_form,
+            "port": lambda: fused_resblock_int8(y, *packed, 0.1)}
+    for name, run in runs.items():
+        if not torch.equal(run(), ref):
+            fail(f"the int8 block kernel ({name}) differs from its plain "
+                 f"version before the timing in turns")
+    times = {name: [] for name in runs}
+    for r in range(rounds):
+        for name in (tuple(runs) if r % 2 == 0 else tuple(runs)[::-1]):
+            times[name].append(timed_ms(runs[name], iters, reps=1)["ms"])
+    res = {}
+    for name, ts in times.items():
+        ts.sort()
+        res[name] = {"ms": ts[len(ts) // 2], "min": ts[0], "max": ts[-1]}
+    print(f"  fused_resblock_int8 [{bsz},{h},{w},{c}] in turns, {rounds} x "
+          f"{iters} launches each, both bitwise the plain version: first "
+          f"form {res['first_form']['ms']:.3f} ms "
+          f"[{res['first_form']['min']:.3f}, {res['first_form']['max']:.3f}]"
+          f", port (csrc/resblock_int8.cu) {res['port']['ms']:.3f} ms "
+          f"[{res['port']['min']:.3f}, {res['port']['max']:.3f}], "
+          f"{res['first_form']['ms'] / res['port']['ms']:.3f}x  [{card}]",
+          flush=True)
+    if not res["port"]["ms"] < res["first_form"]["ms"]:
+        fail("the int8 block kernel is not faster than its first form in "
+             "turns")
+    return res
 
 
 @contextlib.contextmanager
@@ -3940,6 +4071,14 @@ def phase_serve(card: str, workdir: str) -> dict:
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of pesr_torch on "
+                                 "one GPU")
+    ap.add_argument("--int8-first-form", metavar="DIR",
+                    help="a checkout holding the int8 block kernel's first "
+                    "form (weights in natural output-channel order), to "
+                    "build and time in turns with the port's")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -3956,7 +4095,7 @@ def main() -> int:
               "(pesr_torch not found)", file=sys.stderr)
         return 2
 
-    card = phase_build()
+    card = phase_build(args.int8_first_form)
     print(card, flush=True)
     ker = phase_kernels(card)
     main_res = phase_main(card)
@@ -4033,6 +4172,8 @@ def main() -> int:
         "x8_max_abs_err": blk["x8"]["max_abs_err"],
         "planted_fault_values_differ": quant_res["block_fault"][
             "fault_differ"],
+        "turns_ms": ({k: v["ms"] for k, v in blk["x4"]["turns"].items()}
+                     if blk["x4"]["turns"] else None),
         "artifact_launches_per_forward":
             serve_res["int8_launches"]["fused_resblock_int8"]
             / serve_res["int8_forwards"]})

@@ -1,7 +1,7 @@
-// Shared device code of the int8 (W8A8) 3x3-conv kernels (resblock_int8.cu):
+// Shared device code of the int8 (W8A8) 3x3-conv kernel (resblock_int8.cu):
 // the s8 counterparts of conv3x3_tile.cuh's bf16 pieces, which it reuses
 // for everything that is not about the element type (barriers, TMA,
-// window maps, rings, the 64-byte swizzle, the cluster launch).
+// window maps, the 64-byte swizzle, the cluster launch).
 //
 //   * MMA: wgmma.mma_async m64 x N x k32, s8 x s8 -> s32, A from registers
 //     (the RS form takes s8: the k32 s8 A fragment has the byte layout of
@@ -11,16 +11,23 @@
 //     64-byte swizzled row per column: the bytes of a 32-channel bf16
 //     stage, so the bf16 B descriptor (b_desc_sw64) addresses the two
 //     k32 halves of a stage as it addresses the two k16 halves there;
-//   * quantize on load: conv1's bf16 window chunk (TMA) is quantized once
-//     per chunk by all consumer threads into an int8 window in shared
-//     memory (64-byte rows, the TMA tile's swizzle), which the nine taps
-//     then read with ldmatrix: each activation is quantized once per
-//     chunk, not once per tap.
+//   * quantize off the MMA path: conv1's bf16 input arrives in 64-channel
+//     window chunks (4 rows x 66 pixels) in one bf16 slot.  Warps 1-3 of
+//     the producer warpgroup (kQuantizers threads; warp 0 keeps the
+//     weight ring) quantize each chunk into one of kS8Wins int8 windows
+//     (64-byte rows, the TMA tile's swizzle), and their first thread loads
+//     the next chunk into the slot (TMA) as soon as all of them are done
+//     with it.  Full / empty mbarriers (S8Pipes) hand the slot and the
+//     windows between TMA, quantizers and consumers: the consumers wait
+//     only for a window that is not ready, never on a named barrier, and
+//     the weight ring's thread never waits for a window.  Three windows
+//     let the quantizers run two chunks ahead of the MMAs (faster than
+//     two on the H100: PERF.md, Findings).
 //
 // Rounding: every float operation is one IEEE operation rounded to
 // nearest even (__fmul_rn, __fadd_rn, __int2float_rn), as PyTorch's
 // elementwise kernels compute the plain version; nothing is contracted
-// into an FMA.  rint is an add of 1.5 x 2^23 (see quant_bits), exact for
+// into an FMA.  rint is an add of 1.5 x 2^23 (see rint_bits), exact for
 // the clamped values and cheaper than a conversion instruction.
 
 #pragma once
@@ -32,9 +39,29 @@
 
 namespace pesr {
 
-constexpr int kS8Chunk = 64;                // int8 input channels per K stage
-constexpr int kS8SlotBytes = 2 * kWinBytes;  // conv1 window slot: two 32-channel bf16 boxes
-constexpr int kS8WinBytes = kWinBytes;      // the int8 window: 4 x 66 pixels x 64 B
+constexpr int kS8Chunk = 64;                 // int8 input channels per K stage
+constexpr int kS8SlotBytes = 2 * kWinBytes;  // the bf16 window slot: two 32-channel boxes
+constexpr int kS8WinBytes = kWinBytes;       // an int8 window: 4 x 66 pixels x 64 B
+constexpr int kS8WStages = 5;                // weight ring depth
+constexpr int kS8Wins = 3;                   // int8 windows
+constexpr int kQuantizers = 96;              // producer warps 1-3
+
+// The window barriers of the int8 kernel (its weight ring keeps
+// conv3x3_tile.cuh's Pipes): the bf16 slot (filled by TMA, emptied by the
+// quantizers) and the int8 windows (filled by the quantizers, emptied by
+// the 8 consumer warps).
+struct S8Pipes {
+  uint64_t slot_full, slot_empty, win_full[kS8Wins], win_empty[kS8Wins];
+};
+
+__device__ __forceinline__ void init_s8_pipes(S8Pipes& q) {
+  mbar_init(&q.slot_full, 1);
+  mbar_init(&q.slot_empty, kQuantizers);
+  for (int i = 0; i < kS8Wins; ++i) {
+    mbar_init(&q.win_full[i], kQuantizers);
+    mbar_init(&q.win_empty[i], 8);
+  }
+}
 
 // ---------------------------------------------------------------- PTX ---
 
@@ -158,34 +185,38 @@ __device__ __forceinline__ uint32_t pack_s8x4(uint32_t a, uint32_t b, uint32_t c
   return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
 }
 
-// Two bf16 (low half: the lower channel) of word w, quantized with
-// scales s.x, s.y, and the next pair of word w2 with t: one s8x4 word.
-__device__ __forceinline__ uint32_t quant_word(uint32_t w, float2 s, uint32_t w2, float2 t) {
-  return pack_s8x4(quant_bits(__uint_as_float(w << 16), s.x),
-                   quant_bits(__uint_as_float(w & 0xffff0000u), s.y),
-                   quant_bits(__uint_as_float(w2 << 16), t.x),
-                   quant_bits(__uint_as_float(w2 & 0xffff0000u), t.y));
-}
-
-// conv1's window of input chunk kc (64 bf16 channels: the two 32-channel
-// halves of the window slot at `slot`) quantized with qin into the int8
-// window at `win8` (kWinRows x kWinW pixels x 64 B, 64-byte swizzle), by
-// the kConsumers consumer threads, 16 channels of a pixel at a time.
-__device__ __forceinline__ void quantize_window(uint32_t slot, uint32_t win8,
-                                                const float* __restrict__ qin, int kc) {
-  for (int i = threadIdx.x; i < kWinRows * kWinW * 4; i += kConsumers) {
-    const int pix = i >> 2, c16 = i & 3;  // channels 16 c16 .. + 15 of the chunk
-    const uint32_t src = slot + (c16 >> 1) * kWinBytes;
-    uint4 u0, u1;
-    ld_shared_v4(u0, sw64_addr(src, pix, 2 * (c16 & 1)));
-    ld_shared_v4(u1, sw64_addr(src, pix, 2 * (c16 & 1) + 1));
-    const float4* sc = reinterpret_cast<const float4*>(qin + kc * kS8Chunk + 16 * c16);
-    const float4 s0 = __ldg(sc), s1 = __ldg(sc + 1), s2 = __ldg(sc + 2), s3 = __ldg(sc + 3);
-    st_shared_v4(sw64_addr(win8, pix, c16),
-                 quant_word(u0.x, make_float2(s0.x, s0.y), u0.y, make_float2(s0.z, s0.w)),
-                 quant_word(u0.z, make_float2(s1.x, s1.y), u0.w, make_float2(s1.z, s1.w)),
-                 quant_word(u1.x, make_float2(s2.x, s2.y), u1.y, make_float2(s2.z, s2.w)),
-                 quant_word(u1.z, make_float2(s3.x, s3.y), u1.w, make_float2(s3.z, s3.w)));
+// Quantizer thread qt's share (0 <= qt < kQuantizers) of conv1's window
+// chunk kc: the 64 bf16 channels of the slot at `slot` (two 32-channel
+// halves) quantized with qin into the int8 window at `win8`.  The thread
+// owns 8 channels, c8 = 4 h + c (16-byte chunk c of half h), of pixels
+// pix0 + 12 i; a quarter warp takes 2 pixels x 4 chunks of one half, so
+// its 16-byte loads cover one 128-byte row pair: no bank conflict.  Its
+// 8 scales stay in registers for the chunk.
+__device__ __forceinline__ void quantize_chunk(uint32_t slot, uint32_t win8,
+                                               const float* __restrict__ qin, int kc, int qt) {
+  const int c = qt & 3, h = (qt >> 3) & 1, c8 = 4 * h + c;
+  const float4* sc = reinterpret_cast<const float4*>(qin + kc * kS8Chunk + 8 * c8);
+  const float4 s0 = __ldg(sc), s1 = __ldg(sc + 1);
+  const uint32_t src = slot + h * kWinBytes;
+#pragma unroll 2
+  for (int pix = ((qt >> 2) & 1) + 2 * (qt >> 4); pix < kWinRows * kWinW;
+       pix += kQuantizers / 8) {
+    uint4 u;
+    ld_shared_v4(u, sw64_addr(src, pix, c));
+    const uint32_t lo = pack_s8x4(quant_bits(__uint_as_float(u.x << 16), s0.x),
+                                  quant_bits(__uint_as_float(u.x & 0xffff0000u), s0.y),
+                                  quant_bits(__uint_as_float(u.y << 16), s0.z),
+                                  quant_bits(__uint_as_float(u.y & 0xffff0000u), s0.w));
+    const uint32_t hi = pack_s8x4(quant_bits(__uint_as_float(u.z << 16), s1.x),
+                                  quant_bits(__uint_as_float(u.z & 0xffff0000u), s1.y),
+                                  quant_bits(__uint_as_float(u.w << 16), s1.z),
+                                  quant_bits(__uint_as_float(u.w & 0xffff0000u), s1.w));
+    // bytes 8 c8 .. + 7 of the int8 row: 8-byte half (c8 & 1) of its
+    // 16-byte chunk c8 / 2
+    asm volatile("st.shared.v2.b32 [%0], {%1, %2};" ::"r"(sw64_addr(win8, pix, c8 >> 1) +
+                                                           8 * (c8 & 1)),
+                 "r"(lo), "r"(hi)
+                 : "memory");
   }
 }
 
@@ -209,18 +240,15 @@ __device__ __forceinline__ void produce_weights_s8(Pipes<WS>& p, uint8_t* wring,
 
 // Producer side: conv1's window of input chunk kc (64 bf16 channels) from
 // (x0, y0) of image b, as two 32-channel boxes of the window map into the
-// two halves of a window slot.
-template <int WS>
-__device__ __forceinline__ void produce_window_s8(Pipes<WS>& p, uint8_t* wins, RingPos& pos,
-                                                  const CUtensorMap* map, int kc, int x0,
-                                                  int y0, int b) {
-  const uint32_t s = pos.slot<2>();
-  mbar_wait<true>(&p.in_empty[s], pos.parity<2>() ^ 1);
-  mbar_expect_tx(&p.in_full[s], kS8SlotBytes);
-  uint8_t* dst = wins + s * kS8SlotBytes;
-  tma_load_4d(dst, map, &p.in_full[s], kc * kS8Chunk, x0, y0, b);
-  tma_load_4d(dst + kWinBytes, map, &p.in_full[s], kc * kS8Chunk + kKChunk, x0, y0, b);
-  ++pos.n;
+// two halves of the bf16 slot, once the quantizers have emptied it (fill
+// n, counted from 0).
+__device__ __forceinline__ void produce_slot_s8(S8Pipes& q, uint8_t* slot, uint32_t n,
+                                                const CUtensorMap* map, int kc, int x0, int y0,
+                                                int b) {
+  mbar_wait<true>(&q.slot_empty, (n & 1) ^ 1);
+  mbar_expect_tx(&q.slot_full, kS8SlotBytes);
+  tma_load_4d(slot, map, &q.slot_full, kc * kS8Chunk, x0, y0, b);
+  tma_load_4d(slot + kWinBytes, map, &q.slot_full, kc * kS8Chunk + kKChunk, x0, y0, b);
 }
 
 // f(integral_constant<int, S>) for S = 0, 1, ..., in order.
@@ -231,16 +259,16 @@ __device__ __forceinline__ void unroll_stages(F&& f, std::integer_sequence<int, 
 
 // One 3x3 s8 conv of this warpgroup's 64 pixels into acc (zeroed first):
 // 9 * (C / 64) stages in the order kc-major, tap-minor, matching the
-// producer, two k32 MMAs each; a_addr(kc, dy, dx, h) gives this lane's
-// ldmatrix address of k32 half h of the stage's A rows.  kConv1: at each
-// chunk's first tap, the consumers quantize the chunk's bf16 window slot
-// (wins: slot 0's address) with qin into the int8 window at win8 (which
-// a_addr reads) and release the slot; otherwise A is the hidden ring.
-template <int N, int C, bool kConv1, class AAddr>
-__device__ __forceinline__ void conv3x3_s8(int32_t (&acc)[N / 2], Pipes<kWStages>& p,
+// producer, two k32 MMAs each; a_addr(win, kc, dy, dx, h) gives this
+// lane's ldmatrix address of k32 half h of the stage's A rows (win: the
+// int8 window of the chunk).  kConv1: A is the int8 window that the
+// quantizers filled (waited for at each chunk's first tap, released after
+// its last; the last chunk's window is left to the caller to release, see
+// release_last_window); otherwise the hidden ring.
+template <int N, int C, int WS, bool kConv1, class AAddr>
+__device__ __forceinline__ void conv3x3_s8(int32_t (&acc)[N / 2], Pipes<WS>& p, S8Pipes& q,
                                            uint32_t wring, RingPos& wpos, RingPos& ipos,
-                                           AAddr a_addr, uint32_t wins = 0, uint32_t win8 = 0,
-                                           const float* __restrict__ qin = nullptr) {
+                                           AAddr a_addr) {
   constexpr int kStages = 9 * (C / kS8Chunk);
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) acc[i] = 0;
@@ -251,19 +279,12 @@ __device__ __forceinline__ void conv3x3_s8(int32_t (&acc)[N / 2], Pipes<kWStages
   auto stage = [&](auto hc, int s) {
     constexpr int hb = decltype(hc)::value;
     const int kc = s / 9, tap = s % 9;
-    if (kConv1 && tap == 0) {
-      const uint32_t slot = ipos.slot<2>();
-      mbar_wait(&p.in_full[slot], ipos.parity<2>());
-      named_barrier(3, kConsumers);  // every consumer is done with the int8 window
-      quantize_window(wins + slot * kS8SlotBytes, win8, qin, kc);
-      named_barrier(4, kConsumers);  // the int8 window of chunk kc is written
-      release_window(p, slot);
-      ++ipos.n;
-    }
-    const uint32_t ws = wpos.slot<kWStages>();
-    mbar_wait(&p.w_full[ws], wpos.parity<kWStages>());
+    const uint32_t win = ipos.slot<kS8Wins>();
+    if (kConv1 && tap == 0) mbar_wait(&q.win_full[win], ipos.parity<kS8Wins>());
+    const uint32_t ws = wpos.slot<WS>();
+    mbar_wait(&p.w_full[ws], wpos.parity<WS>());
 #pragma unroll
-    for (int h = 0; h < 2; ++h) ldmatrix_x4(a[hb][h], a_addr(kc, tap / 3, tap % 3, h));
+    for (int h = 0; h < 2; ++h) ldmatrix_x4(a[hb][h], a_addr(win, kc, tap / 3, tap % 3, h));
     wgmma_fence();
     const uint32_t base = wring + ws * (N * kChunkBytes);
     WgmmaS8<N>::mma(acc, a[hb][0], b_desc_sw64(base, 0));
@@ -271,6 +292,11 @@ __device__ __forceinline__ void conv3x3_s8(int32_t (&acc)[N / 2], Pipes<kWStages
     wgmma_commit();
     wgmma_wait<1>();
     if (s > 0) release_weights(p, prev_w);
+    if (kConv1 && tap == 8) {
+      // the chunk's A fragments are in registers: the window is free
+      if (kc + 1 < C / kS8Chunk && (threadIdx.x & 31) == 0) mbar_arrive(&q.win_empty[win]);
+      ++ipos.n;
+    }
     prev_w = ws;
     ++wpos.n;
   };
@@ -292,6 +318,14 @@ __device__ __forceinline__ void conv3x3_s8(int32_t (&acc)[N / 2], Pipes<kWStages
   }
   wgmma_wait<0>();
   release_weights(p, prev_w);
+}
+
+// Consumer side: release the int8 window of conv1's last chunk (ipos has
+// moved past it).  Called after conv1's epilogue, so that the quantizers
+// fill it with the next step's second chunk while conv2's MMAs run, not
+// while the epilogue needs the FP32 pipes.
+__device__ __forceinline__ void release_last_window(S8Pipes& q, const RingPos& ipos) {
+  if ((threadIdx.x & 31) == 0) mbar_arrive(&q.win_empty[(ipos.n - 1) % kS8Wins]);
 }
 
 // ------------------------------------------------------------- host ---

@@ -6,7 +6,9 @@ interface, compiled by ``nvcc`` for Hopper (``sm_90a``) and loaded with
 seconds, not minutes.  Libraries go to ``pesr_torch/_build/<hash>/``,
 where ``<hash>`` covers every source and header: the first use builds,
 an edited source rebuilds, and an unchanged tree reuses what is there.
-All sources compile at once, one ``nvcc`` process each.
+All sources compile at once, one ``nvcc`` process each; each build's
+``nvcc`` / ``ptxas -v`` output is kept beside its library
+(``lib<name>.log``), so a reused library still has its log.
 
 There is no fallback: without ``nvcc``, or when a build fails, this
 raises.  Importing this module does nothing; building happens on the
@@ -33,7 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-LOGS: Dict[str, str] = {}  # nvcc / ptxas output of each build this process ran
+LOGS: Dict[str, str] = {}  # nvcc / ptxas output of each kernel's build
 
 
 def _sources_hash() -> str:
@@ -59,10 +61,15 @@ def build_all(verbose: bool = False) -> Dict[str, Path]:
     """Build every kernel library that is missing for the current sources,
     one ``nvcc`` per source, all started together.  Returns
     ``{name: path}``.  With ``verbose``, prints what ``-Xptxas -v`` reports
-    (registers, shared memory, spills) for each build it ran."""
+    (registers, shared memory, spills) for each build it ran.  Fills
+    :data:`LOGS` for every library, built now or reused."""
     out = BUILD_ROOT / _sources_hash()
     libs = {k: out / f"lib{k}.so" for k in KERNELS}
     todo = [k for k in KERNELS if not libs[k].exists()]
+    for k in KERNELS:
+        log = out / f"lib{k}.log"
+        if k not in todo and log.exists():
+            LOGS[k] = log.read_text()
     if not todo:
         return libs
     out.mkdir(parents=True, exist_ok=True)
@@ -83,6 +90,7 @@ def build_all(verbose: bool = False) -> Dict[str, Path]:
                           f"{log}")
             tmp.unlink(missing_ok=True)
             continue
+        (out / f"lib{k}.log").write_text(log)
         os.replace(tmp, libs[k])
         LOGS[k] = log
         if verbose:

@@ -6,8 +6,9 @@ Counterpart of no Pallas kernel: the JAX block
 ``lax.conv(int8, int8) -> int32`` with the quantize, the conv1 -> conv2
 requant, the dequant and the residual fused around them by XLA.  The CUDA
 kernel is ``pesr_torch/csrc/resblock_int8.cu`` (s8 ``wgmma``, the bf16
-carry quantized on load into shared memory, an int8 hidden ring); its
-header note gives the design and what bounds it on the H100.
+carry quantized into shared memory by producer warps off the MMA path, an
+int8 hidden ring); its header note gives the design and what bounds it on
+the H100.
 
 On the bf16 carry ``y`` [B, H, W, C] NHWC, with int8 weights and the f32
 per-channel vectors of :class:`~pesr_torch.models.quant_apply.Int8Apply`
@@ -22,13 +23,14 @@ each float operation rounded on its own.  :func:`int8_resblock_reference`
 is the plain version (OHWI weights, the layout of
 :func:`~pesr_torch.ops.int8_conv.int8_conv`), bitwise JAX's ``body_fn``
 run op by op.  The kernel takes the weights packed once by
-:func:`pack_int8_block_weights`; :func:`fused_resblock_int8` calls the
-custom op ``pesr::fused_resblock_int8``, which launches the kernel for a
-CUDA tensor (counted in ``fused_resblock_int8.launches``) and runs the
-plain version for a CPU tensor; its fake implementation lets
-``torch.export`` trace through it.  :func:`resblock_int8_schedule` and
-:func:`resblock_int8_work` give the kernel's decomposition (the bf16
-kernel's line mode) for the CPU tests.
+:func:`pack_int8_block_weights` (K-major, the output channels in the
+orders of :func:`output_channel_orders`); :func:`fused_resblock_int8`
+calls the custom op ``pesr::fused_resblock_int8``, which launches the
+kernel for a CUDA tensor (counted in ``fused_resblock_int8.launches``)
+and runs the plain version for a CPU tensor; its fake implementation
+lets ``torch.export`` trace through it.  :func:`resblock_int8_schedule`
+and :func:`resblock_int8_work` give the kernel's decomposition (the
+bf16 kernel's line mode) for the CPU tests.
 """
 
 from __future__ import annotations
@@ -93,20 +95,47 @@ def int8_resblock_reference(y: torch.Tensor, w1: torch.Tensor,
     return y + _bf16_scalar(res_scale, y.device) * y2
 
 
+@functools.lru_cache(maxsize=None)
+def output_channel_orders(c: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's orders of conv1's and conv2's output channels: entry
+    ``n`` is the channel that the wgmma accumulator's column ``n`` holds.
+    A lane of the accumulator holds columns ``8 j + 2 r + e`` (``r`` =
+    lane % 4, ``e`` = 0, 1) for every 8-column group ``j``; the orders
+    give it channels that lie side by side in memory: conv1's column ``64
+    u + 8 i + 2 r + e`` is channel ``64 u + 16 r + 2 i + e`` (16 channels
+    of the int8 hidden ring, one 16-byte store), conv2's column ``32 i + 8
+    e + 2 r + f`` is channel ``32 i + 8 r + 2 e + f`` (8 channels of the
+    bf16 carry and output, one 16-byte vector).  The identities when
+    ``c`` is not a multiple of 64 (no kernel width)."""
+    n = torch.arange(c)
+    if c % 64:
+        return n, n
+    u, i, r, e = n // 64, n % 64 // 8, n % 8 // 2, n % 2
+    first = 64 * u + 16 * r + 2 * i + e
+    i, e, r, f = n // 32, n % 32 // 8, n % 8 // 2, n % 2
+    return first, 32 * i + 8 * r + 2 * e + f
+
+
 def pack_int8_block_weights(w1: torch.Tensor, w2: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """OHWI int8 ``w1``, ``w2`` -> the kernel's K-major ``(3, 3, C_out,
     C_in)`` int8 pair: per tap one row of input channels per output
-    channel."""
-    return (w1.permute(1, 2, 0, 3).contiguous(),
-            w2.permute(1, 2, 0, 3).contiguous())
+    channel, the output channels in :func:`output_channel_orders`."""
+    o1, o2 = output_channel_orders(w1.shape[0])
+    return (w1.index_select(0, o1.to(w1.device)).permute(1, 2, 0, 3)
+            .contiguous(),
+            w2.index_select(0, o2.to(w2.device)).permute(1, 2, 0, 3)
+            .contiguous())
 
 
 def unpack_int8_block_weights(w1: torch.Tensor, w2: torch.Tensor
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The inverse of :func:`pack_int8_block_weights`: OHWI int8."""
-    return (w1.permute(2, 0, 1, 3).contiguous(),
-            w2.permute(2, 0, 1, 3).contiguous())
+    o1, o2 = (torch.argsort(o) for o in output_channel_orders(w1.shape[2]))
+    return (w1.index_select(2, o1.to(w1.device)).permute(2, 0, 1, 3)
+            .contiguous(),
+            w2.index_select(2, o2.to(w2.device)).permute(2, 0, 1, 3)
+            .contiguous())
 
 
 @functools.lru_cache(maxsize=None)

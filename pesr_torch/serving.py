@@ -56,7 +56,11 @@ from pesr_torch.utils.device import full_f32, resolve_device
 
 _META_NAME = "meta.json"
 _PROGRAM_NAME = "program.pt2"
-_FORMAT_VERSION = 1
+# 2: the int8 block's packed weights carry both convs' output channels
+# in ``output_channel_orders`` (ops/kernels/resblock_int8.py); a
+# version-1 int8 program holds them in natural order and would run
+# with its channels permuted, so version 1 is refused.
+_FORMAT_VERSION = 2
 
 
 class _Program(torch.nn.Module):

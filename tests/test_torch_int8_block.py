@@ -125,8 +125,12 @@ def test_wrapper_on_the_cpu_is_the_plain_version():
 
 @pytest.mark.parametrize("c", [16, 64, 256])
 def test_pack_int8_block_weights_layout(c):
-    """Packed ``[dy][dx][o][i]`` holds OHWI ``w[o, dy, dx, i]`` for both
-    convs, contiguous int8; unpacking inverts it."""
+    """Packed ``[dy][dx][n][i]`` holds OHWI ``w1[o1[n], dy, dx, i]`` and
+    ``w2[o2[n], dy, dx, i]``, the output channels in the kernel's orders
+    (``output_channel_orders``: conv1's column 64 u + 8 i + 2 r + e is
+    channel 64 u + 16 r + 2 i + e, conv2's column 32 i + 8 e + 2 r + f is
+    channel 32 i + 8 r + 2 e + f; the identities at C = 16), contiguous
+    int8; unpacking inverts it."""
     rng = np.random.default_rng(c)
     w1 = rng.integers(-127, 128, (c, 3, 3, c)).astype(np.int8)
     w2 = rng.integers(-127, 128, (c, 3, 3, c)).astype(np.int8)
@@ -134,10 +138,20 @@ def test_pack_int8_block_weights_layout(c):
     assert p1.shape == p2.shape == (3, 3, c, c)
     assert p1.is_contiguous() and p2.is_contiguous()
     assert p1.dtype == p2.dtype == torch.int8
-    for p, w in ((p1, w1), (p2, w2)):
-        for dy, dx, o, i in ((0, 0, 0, 0), (2, 1, c - 1, 3), (1, 2, 5, c - 2)):
-            assert p[dy, dx, o, i] == w[o, dy, dx, i]
-        np.testing.assert_array_equal(p.numpy(), np.transpose(w, (1, 2, 0, 3)))
+    o1, o2 = (o.numpy() for o in rb8.output_channel_orders(c))
+    assert sorted(o1) == sorted(o2) == list(range(c))
+    if c % 64 == 0:
+        assert list(o1[:10]) == [0, 1, 16, 17, 32, 33, 48, 49, 2, 3]
+        assert list(o2[:10]) == [0, 1, 8, 9, 16, 17, 24, 25, 2, 3]
+        assert o1[c - 64 + 8 * 7 + 2 * 3 + 1] == c - 64 + 16 * 3 + 2 * 7 + 1
+        assert o2[c - 32 + 8 * 3 + 2 * 1 + 1] == c - 32 + 8 * 1 + 2 * 3 + 1
+    else:
+        assert list(o1) == list(o2) == list(range(c))
+    for p, w, order in ((p1, w1, o1), (p2, w2, o2)):
+        for dy, dx, n, i in ((0, 0, 0, 0), (2, 1, c - 1, 3), (1, 2, 5, c - 2)):
+            assert p[dy, dx, n, i] == w[order[n], dy, dx, i]
+        np.testing.assert_array_equal(
+            p.numpy(), np.transpose(w[order], (1, 2, 0, 3)))
     u1, u2 = rb8.unpack_int8_block_weights(p1, p2)
     np.testing.assert_array_equal(u1.numpy(), w1)
     np.testing.assert_array_equal(u2.numpy(), w2)

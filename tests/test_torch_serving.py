@@ -268,6 +268,34 @@ def test_export_int8_path(tmp_path):
     assert read_meta(path)["precision_path"] == "int8-w8a8"
 
 
+def test_load_refuses_artifact_of_older_format(tmp_path):
+    """An int8 artifact of format version 1 holds its block weights in
+    natural output-channel order, which today's packing does not read:
+    loading one raises instead of serving permuted channels."""
+    from pesr_torch.models.quant_apply import (default_calib_tiles,
+                                               int8_inference)
+    gen = Generator(2, 2, 8, device="cpu", seed=0)
+    imgs = _imgs(b=1, h=24, w=20, seed=3)
+    engine = BatchTiledUpscaler(
+        int8_inference(gen, default_calib_tiles([imgs[0]])), 2, 16, 4,
+        device="cpu")
+    path = os.path.join(tmp_path, "up_int8.pesr")
+    export_upscaler(engine, *imgs.shape[:3], path,
+                    precision_path="int8-w8a8")
+    assert read_meta(path)["format_version"] == 2
+    old = os.path.join(tmp_path, "up_int8_v1.pesr")
+    with zipfile.ZipFile(path) as src, zipfile.ZipFile(old, "w") as dst:
+        for info in src.infolist():
+            data = src.read(info.filename)
+            if info.filename == "meta.json":
+                meta = json.loads(data)
+                meta["format_version"] = 1
+                data = json.dumps(meta).encode()
+            dst.writestr(info, data)
+    with pytest.raises(ValueError, match="format_version 1"):
+        load_upscaler(old, device="cpu")
+
+
 @pytest.mark.parametrize("case", ["chain x2", "folded x4, overlap 0"])
 def test_meta_grid_equals_jax(tmp_path, case):
     """``meta["grid"]`` (the halos the program actually uses per axis,

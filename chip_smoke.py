@@ -169,6 +169,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               artifact on a batch of 1 and an int8 artifact (32 int8
               block launches per forward inside it), each bitwise its
               live engine.
+12. fit      -- the PI model fitters on the card's host (no kernel, no
+              scikit-learn): whether scikit-learn is importable there;
+              ``pesr_torch.metrics.fit_ma.main`` at its defaults, every
+              array bitwise the packaged ``ma_model_synthetic.npz`` and
+              rc 0, with the seconds of its features and its forests;
+              ``fit_natural.main``, its refusal below 4 registry
+              photographs or its holdout orderings.  A ``{"fit": ...}``
+              line before the kernels line.
 
 Prints a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or pesr_tpu.
@@ -4070,6 +4078,93 @@ def phase_serve(card: str, workdir: str) -> dict:
             "int8_launches": launches8, "int8_forwards": fwd8}
 
 
+def phase_fit(workdir: str) -> dict:
+    """The PI model fitters on the card's host (numpy and scipy, no
+    scikit-learn; no kernel): ``fit_ma.main`` at its defaults must write
+    every array of the packaged ``ma_model_synthetic.npz`` bitwise and
+    exit 0 (4/4 held-out orderings), with the seconds of its feature
+    extraction and of its forests; then ``fit_natural.main``, which
+    refuses below 4 registry photographs (as the JAX package does) and
+    otherwise validates on the holdouts."""
+    import importlib.util
+
+    from pesr_torch.data import natural
+    from pesr_torch.metrics import fit_ma, fit_natural
+    from pesr_torch.metrics.ma_features import MaModel
+    t0 = time.perf_counter()
+    has_sklearn = importlib.util.find_spec("sklearn") is not None
+    print(f"[fit] scikit-learn importable on this machine: {has_sklearn} "
+          "(the port's forest does not use it)", flush=True)
+    seconds = {}
+    originals = {"features_s": fit_ma.build_training_set,
+                 "forests_s": fit_ma.fit_forests}
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            t1 = time.perf_counter()
+            out = fn(*args, **kw)
+            seconds[key] = time.perf_counter() - t1
+            return out
+        return run
+
+    out = os.path.join(workdir, "ma_model_synthetic.npz")
+    fit_ma.build_training_set = timed("features_s",
+                                      originals["features_s"])
+    fit_ma.fit_forests = timed("forests_s", originals["forests_s"])
+    try:
+        rc = fit_ma.main(["--out", out])
+    finally:
+        fit_ma.build_training_set = originals["features_s"]
+        fit_ma.fit_forests = originals["forests_s"]
+    ma_s = time.perf_counter() - t0
+    got = MaModel.load(out).arrays
+    want = MaModel.load(os.path.join(REPO, "pesr_torch", "metrics",
+                                     "ma_model_synthetic.npz")).arrays
+    keys = sorted(set(want) - {"provenance"})
+    differ = [k for k in keys if k not in got
+              or got[k].dtype != want[k].dtype
+              or got[k].tobytes() != want[k].tobytes()]
+    print(f"  fit_ma.main(['--out', ...]) at its defaults: rc {rc}; "
+          f"{len(keys) - len(differ)}/{len(keys)} arrays bitwise the "
+          f"packaged ma_model_synthetic.npz; features "
+          f"{seconds['features_s']:.2f} s, forests {seconds['forests_s']:.2f}"
+          f" s, whole call {ma_s:.2f} s", flush=True)
+    if rc != 0:
+        fail("fit_ma.main exited non-zero (held-out ordering)")
+    if differ or set(got) - {"provenance"} != set(keys):
+        fail(f"the refit Ma model differs from the packaged one: {differ}")
+    n_images = len(natural.load_natural_images())
+    t1 = time.perf_counter()
+    argv = ["--niqe_out", os.path.join(workdir, "niqe_model_natural.npz"),
+            "--ma_out", os.path.join(workdir, "ma_model_natural.npz")]
+    try:
+        nat_rc = fit_natural.main(argv)
+        refusal = None
+    except SystemExit as e:
+        refusal = str(e)
+        if n_images >= 4 or not refusal.startswith(
+                f"only {n_images} curated natural images found"):
+            raise
+        nat_rc = None
+    nat_s = time.perf_counter() - t1
+    if refusal is not None:
+        print(f"  fit_natural.main: {n_images} registry photograph(s) "
+              f"here; refused as expected: {refusal!r}", flush=True)
+    else:
+        print(f"  fit_natural.main on {n_images} registry photographs: rc "
+              f"{nat_rc} ({nat_s:.1f} s; holdout orderings above)",
+              flush=True)
+        if nat_rc != 0:
+            fail("fit_natural's holdout orderings failed")
+    res = {"sklearn_importable": has_sklearn, "features_s": seconds[
+        "features_s"], "forests_s": seconds["forests_s"], "fit_ma_s": ma_s,
+        "arrays_bitwise": len(keys), "natural_images": n_images,
+        "natural_refused": refusal is not None, "natural_rc": nat_rc,
+        "natural_s": nat_s}
+    print(f"[fit] phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return res
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of pesr_torch on "
@@ -4109,6 +4204,7 @@ def main() -> int:
         data_res = phase_data(card, workdir)
         par_res = phase_parallel(card, workdir)
         serve_res = phase_serve(card, workdir)
+        fit_res = phase_fit(workdir)
     sources = {"fused_resblock": ("pesr_torch/csrc/resblock.cu",
                                   "pesr_tpu/ops/pallas/resblock.py:96"),
                "fused_upsampler_stage": ("pesr_torch/csrc/upsampler.cu",
@@ -4183,6 +4279,7 @@ def main() -> int:
           f"bound {conv['bound_ms']:.3f} ms; x8 upfold "
           f"{quant_res['upfold_conv']['ms']:.3f} ms, bound "
           f"{quant_res['upfold_conv']['bound_ms']:.3f} ms", flush=True)
+    print(json.dumps({"fit": fit_res}), flush=True)
     print(json.dumps(line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

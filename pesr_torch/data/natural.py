@@ -113,6 +113,22 @@ def holdout_names() -> List[str]:
     return [e.name for e in REGISTRY if e.holdout]
 
 
+def load_holdout_images() -> List[Tuple[str, np.ndarray]]:
+    """Every installed holdout photograph (never fitted by the metric
+    models) as (name, HWC uint8), in registry order."""
+    return [(e.name, _load(e, path)) for e in REGISTRY if e.holdout
+            for path in [resolve(e)] if path]
+
+
+def load_holdout_image() -> Optional[np.ndarray]:
+    """The primary holdout, the webcam photo (the only holdout that is a
+    scene rather than a material texture), or None where its package is
+    not installed."""
+    entry = next(e for e in REGISTRY if e.holdout)
+    path = resolve(entry)
+    return _load(entry, path) if path else None
+
+
 def missing_error() -> FileNotFoundError:
     """The error when no registry image resolves on this machine."""
     mods = sorted({e.module for e in REGISTRY})

@@ -1,7 +1,9 @@
 """NIQE, the Natural Image Quality Evaluator (Mittal, Soundararajan,
 Bovik 2013): the NIQE half of the PIRM perceptual index.  The port's own
 float64 numpy copy of ``pesr_tpu/metrics/niqe.py``, run on the host as
-the JAX package runs it; it needs no scipy.
+the JAX package runs it.  The gamma-ratio table is scipy's, as there: a
+table that differs in its last bits moves the nearest-shape lookup on
+near ties, and the shape by a whole 0.001 step.
 
 The MATLAB reference pipeline:
 
@@ -31,6 +33,7 @@ import os
 from typing import Iterable, Optional, Tuple
 
 import numpy as np
+from scipy.special import gamma as _gamma_fn
 
 from pesr_torch.ops.resize import resize_kernel_matrix
 
@@ -41,9 +44,8 @@ _NATURAL_MODEL_PATH = os.path.join(_HERE, "niqe_model_natural.npz")
 # Gamma-ratio lookup for the GGD / AGGD shape fits:
 # r(a) = gamma(2/a)^2 / (gamma(1/a) gamma(3/a)) on a in [0.2, 10].
 _GAM = np.arange(0.2, 10.001, 0.001)
-_R_GAM = np.array([math.gamma(2.0 / a) ** 2
-                   / (math.gamma(1.0 / a) * math.gamma(3.0 / a))
-                   for a in _GAM])
+_R_GAM = (_gamma_fn(2.0 / _GAM) ** 2) / (
+    _gamma_fn(1.0 / _GAM) * _gamma_fn(3.0 / _GAM))
 
 
 def _rgb2gray(img: np.ndarray) -> np.ndarray:
@@ -105,9 +107,9 @@ def _estimate_aggd(vec: np.ndarray) -> Tuple[float, float, float, float]:
     r_hat_norm = r_hat * (gamma_hat ** 3 + 1) * (gamma_hat + 1) / (
         (gamma_hat ** 2 + 1) ** 2 + 1e-12)
     alpha = float(_GAM[np.argmin((_R_GAM - r_hat_norm) ** 2)])
-    const = math.sqrt(math.gamma(1.0 / alpha) / math.gamma(3.0 / alpha))
+    const = math.sqrt(_gamma_fn(1.0 / alpha) / _gamma_fn(3.0 / alpha))
     mean_param = (sigma_r - sigma_l) * (
-        math.gamma(2.0 / alpha) / math.gamma(1.0 / alpha)) * const
+        _gamma_fn(2.0 / alpha) / _gamma_fn(1.0 / alpha)) * const
     return alpha, float(mean_param), sigma_l_sq, sigma_r_sq
 
 

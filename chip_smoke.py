@@ -177,6 +177,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               ``fit_natural.main``, its refusal below 4 registry
               photographs or its holdout orderings.  A ``{"fit": ...}``
               line before the kernels line.
+13. bench    -- the port's headline benchmark, ``python -m
+              pesr_torch.bench`` (``bench.py``'s contract): at its
+              defaults in a subprocess (x4, 8 images of 510 x 336, int8
+              headline and bf16 folded, best of 5; its JSON line with
+              ``bench.py``'s keys, beside the card); a scale sweep in
+              this process through the same functions (x2, x3, x6, x8 on
+              both paths and x4 on the bf16 chain at 2 images, best of 2,
+              then each at 8 images, x4 folded too: MP/s, the tile grid,
+              each path's launches against the expected counts, peak
+              memory), each kernel held to its plain version at every
+              shape the sweep handed it (the int8 block bitwise);
+              ``BENCH_MESH=2`` as two gloo ranks on the card (one line,
+              from rank 0, with the mesh keys).  The kernels line gains
+              each kernel's sweep launches and errors.
 
 Prints a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or pesr_tpu.
@@ -3523,11 +3537,12 @@ def _rank_argv(call: str) -> list:
 
 
 def _run_ranks(argv: list, n: int = PAR_RANKS,
-               timeout: float = 400.0) -> list:
+               timeout: float = 400.0, env=None) -> list:
     """``argv`` as ``n`` processes under the ``PESR_*`` contract (a free
-    localhost port), from this script's directory; their output is
-    printed with a rank prefix.  Kills every one still running after
-    ``timeout`` s; fails unless all exit 0."""
+    localhost port), from this script's directory, with ``env`` added to
+    the environment; their output is printed with a rank prefix.  Kills
+    every one still running after ``timeout`` s; fails unless all exit
+    0."""
     import socket
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -3535,7 +3550,8 @@ def _run_ranks(argv: list, n: int = PAR_RANKS,
     root = os.path.dirname(os.path.abspath(__file__))
     procs = []
     for r in range(n):
-        e = dict(os.environ, PESR_COORDINATOR=f"127.0.0.1:{port}",
+        e = dict(os.environ, **(env or {}),
+                 PESR_COORDINATOR=f"127.0.0.1:{port}",
                  PESR_NUM_PROCESSES=str(n), PESR_PROCESS_ID=str(r))
         procs.append(subprocess.Popen(
             argv, cwd=root, env=e, stdout=subprocess.PIPE,
@@ -3741,21 +3757,39 @@ def _div2k_sized_lrs():
 
 
 @contextlib.contextmanager
-def resblock_shapes():
-    """Within: the set of input shapes [B, H, W, C] that the inference
-    apply (``pesr_torch.models.kernel_apply``) hands ``fused_resblock``."""
+def kernel_shapes():
+    """Within: per kernel, the set of input shapes [B, H, W, C] that the
+    inference applies hand it (``pesr_torch.models.kernel_apply``'s
+    ``fused_resblock`` and ``fused_upsampler_stage``,
+    ``pesr_torch.models.quant_apply``'s ``fused_resblock_int8``)."""
     import pesr_torch.models.kernel_apply as ka
-    inner, seen = ka.fused_resblock, set()
+    import pesr_torch.models.quant_apply as qa
+    sites = ((ka, "fused_resblock"), (ka, "fused_upsampler_stage"),
+             (qa, "fused_resblock_int8"))
+    seen = {name: set() for _, name in sites}
+    inner = {name: getattr(mod, name) for mod, name in sites}
 
-    def spy(x, *args, **kw):
-        seen.add(tuple(x.shape))
-        return inner(x, *args, **kw)
+    def spy_of(name):
+        def spy(x, *args, **kw):
+            seen[name].add(tuple(x.shape))
+            return inner[name](x, *args, **kw)
+        return spy
 
-    ka.fused_resblock = spy
+    for mod, name in sites:
+        setattr(mod, name, spy_of(name))
     try:
         yield seen
     finally:
-        ka.fused_resblock = inner
+        for mod, name in sites:
+            setattr(mod, name, inner[name])
+
+
+@contextlib.contextmanager
+def resblock_shapes():
+    """Within: the set of input shapes that the inference apply hands
+    ``fused_resblock`` (:func:`kernel_shapes`)."""
+    with kernel_shapes() as seen:
+        yield seen["fused_resblock"]
 
 
 def hold_resblock_at(shapes, seed: int) -> list:
@@ -4165,6 +4199,156 @@ def phase_fit(workdir: str) -> dict:
     return res
 
 
+# The bench phase's scale sweep (BENCH_SCALE, BENCH_FOLD, BENCH_IMAGES):
+# x2, x3, x6 and x8 on both paths, then x4 on the bf16 chain, the one
+# bench path that runs fused_upsampler_stage.  Two images, best of two
+# passes; then each at bench.py's batch of eight, one pass, for the grid
+# the auto chooser takes and the peak memory there (x4 folded too, whose
+# speed the defaults' subprocess measures).
+BENCH_SWEEP = tuple((s, "1", ("2", "8")) for s in (2, 3, 6, 8)) + (
+    (4, "0", ("2", "8")), (4, "1", ("8",)))
+BENCH_SWEEP_REPEATS = {"2": "2", "8": "1"}
+BENCH_KEYS = {"metric", "value", "unit", "precision", "vs_baseline", "paths"}
+
+
+def _bench_line(out: str, what: str) -> dict:
+    """The one JSON line of a ``pesr_torch.bench`` run's stdout."""
+    lines = [x for x in out.splitlines() if x.startswith("{")]
+    if len(lines) != 1:
+        fail(f"{what}: {len(lines)} JSON lines, not one")
+    return json.loads(lines[0])
+
+
+def _bench_expected(scale: int, path: str, fold: bool, forwards: int
+                    ) -> dict:
+    """The launches a bench path makes over ``forwards`` generator
+    forwards: 32 int8 blocks (int8), 32 resblocks and on the chain one
+    upsampler stage per x2 factor (bf16)."""
+    from pesr_torch.scales import upsample_stages
+    if path == "int8-w8a8":
+        return {"fused_resblock": 0, "fused_upsampler_stage": 0,
+                "fused_resblock_int8": BLOCKS * forwards}
+    stages = 0 if fold else sum(f == 2 for f in upsample_stages(scale))
+    return {"fused_resblock": BLOCKS * forwards,
+            "fused_upsampler_stage": stages * forwards,
+            "fused_resblock_int8": 0}
+
+
+def _bench_sweep(card: str) -> dict:
+    """The sweep of BENCH_SWEEP in this process through
+    ``pesr_torch.bench.run``: MP/s, grid, launches (each path's own,
+    checked against :func:`_bench_expected`) and peak memory per path,
+    then each kernel held to its plain version at every input shape the
+    sweep handed it (the int8 block bitwise)."""
+    import torch
+    from pesr_torch import bench
+    runs = {}
+    with kernel_shapes() as shapes:
+        for scale, fold, counts in BENCH_SWEEP:
+            for images in counts:
+                env = {"BENCH_SCALE": str(scale), "BENCH_FOLD": fold,
+                       "BENCH_IMAGES": images,
+                       "BENCH_REPEATS": BENCH_SWEEP_REPEATS[images]}
+                if fold == "0":
+                    env.update(BENCH_QUANT="none", BENCH_PATHS="bf16")
+                record, details = bench.run("cuda", env)
+                for path, d in details.items():
+                    key = (f"x{scale} {path}{' chain' if fold == '0' else ''}"
+                           f" {images} images")
+                    want = _bench_expected(scale, path, fold == "1",
+                                           d["forwards"])
+                    r = runs[key] = {
+                        "mp_per_s": record["paths"][path]["value"],
+                        "seconds": d["seconds"], "grid": list(d["grid"]),
+                        "forwards": d["forwards"], "launches": d["launches"],
+                        "peak_gb": d["peak_bytes"] / 1e9}
+                    print(f"  {key}: {r['mp_per_s']:.3f} MP/s, grid (nh, nw,"
+                          f" th, tw) {r['grid']}, {r['forwards']} forwards, "
+                          f"launches {r['launches']}, peak "
+                          f"{r['peak_gb']:.2f} GB [{card}]", flush=True)
+                    if d["launches"] != want:
+                        fail(f"bench {key}: launches {d['launches']} != "
+                             f"{want}")
+    held = {
+        "fused_resblock": hold_resblock_at(shapes["fused_resblock"], 90),
+        "fused_upsampler_stage": [
+            check_upsampler(*shape, seed=95 + i)["max_abs_err"]
+            for i, shape in enumerate(sorted(
+                shapes["fused_upsampler_stage"]))],
+        "fused_resblock_int8": [
+            check_int8_block(card, *shape, seed=97 + i)["max_abs_err"]
+            for i, shape in enumerate(sorted(
+                shapes["fused_resblock_int8"]))]}
+    torch.cuda.empty_cache()
+    return {"runs": runs, "held": held,
+            "shapes": {k: sorted(v) for k, v in shapes.items()}}
+
+
+def bench_keys(bench_res: dict, name: str) -> dict:
+    """A kernel's keys of the bench phase for the kernels line: its
+    launches on each sweep path that ran it, and its largest error
+    against its plain version at the shapes the sweep handed it."""
+    launches = {k: r["launches"][name] for k, r in bench_res["runs"].items()
+                if r["launches"][name]}
+    if not launches:
+        fail(f"no bench path of the sweep launched {name}")
+    return {"bench_launches": launches,
+            "bench_shapes": bench_res["shapes"][name],
+            "bench_max_abs_err": max(bench_res["held"][name])}
+
+
+def phase_bench(card: str) -> dict:
+    """The port's headline benchmark, ``python -m pesr_torch.bench``
+    (bench.py's contract): at its defaults in a subprocess (its JSON line
+    with the card beside it; bench.py's keys); the scale sweep
+    (:func:`_bench_sweep`); ``BENCH_MESH=2`` as two gloo ranks on the one
+    card (one line, from rank 0, with the mesh keys)."""
+    t0 = time.perf_counter()
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    out = subprocess.run([sys.executable, "-m", "pesr_torch.bench"],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=400)
+    for line in out.stderr.rstrip().splitlines():
+        print(f"  {line}", flush=True)
+    if out.returncode != 0:
+        fail(f"python -m pesr_torch.bench exited {out.returncode}")
+    defaults = _bench_line(out.stdout, "python -m pesr_torch.bench")
+    if (set(defaults) != BENCH_KEYS
+            or set(defaults["paths"]) != {"int8-w8a8", "bf16"}
+            or defaults["metric"] != "tiled_x4_inference_throughput"
+            or defaults["precision"] != "int8-w8a8"):
+        fail(f"python -m pesr_torch.bench printed a malformed line: "
+             f"{defaults}")
+    t_defaults = time.perf_counter() - t0
+    print(f"[bench] python -m pesr_torch.bench at its defaults (x4, 8 "
+          f"images 510 x 336, 32 x 256, best of 5): {json.dumps(defaults)} "
+          f"[{card}]", flush=True)
+    t1 = time.perf_counter()
+    print("[bench] scale sweep in this process: 2 images, best of 2 "
+          "passes, then 8 images, one pass", flush=True)
+    sweep = _bench_sweep(card)
+    t_sweep = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    mesh_env = {"BENCH_MESH": "2", "BENCH_IMAGES": "2", "BENCH_REPEATS": "1"}
+    print(f"[bench] {mesh_env} as {PAR_RANKS} gloo ranks on one card "
+          f"(semantics, not speed)", flush=True)
+    outs = _run_ranks([sys.executable, "-m", "pesr_torch.bench"],
+                      timeout=400, env=mesh_env)
+    mesh = _bench_line("".join(outs), "BENCH_MESH=2")
+    if (len([x for x in outs[0].splitlines() if x.startswith("{")]) != 1
+            or set(mesh) != BENCH_KEYS | {"mesh_devices",
+                                          "mesh_total_mps_headline"}
+            or mesh["mesh_devices"] != 2
+            or mesh["mesh_total_mps_headline"] != round(
+                2 * mesh["value"], 3)):
+        fail(f"BENCH_MESH=2: malformed line or not from rank 0: {mesh}")
+    print(f"  BENCH_MESH=2 line: {json.dumps(mesh)} [{card}]", flush=True)
+    print(f"[bench] phase took {time.perf_counter() - t0:.1f} s: defaults "
+          f"{t_defaults:.1f} s, sweep {t_sweep:.1f} s, mesh "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    return {"defaults": defaults, "mesh": mesh, **sweep}
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of pesr_torch on "
@@ -4205,6 +4389,7 @@ def main() -> int:
         par_res = phase_parallel(card, workdir)
         serve_res = phase_serve(card, workdir)
         fit_res = phase_fit(workdir)
+    bench_res = phase_bench(card)
     sources = {"fused_resblock": ("pesr_torch/csrc/resblock.cu",
                                   "pesr_tpu/ops/pallas/resblock.py:96"),
                "fused_upsampler_stage": ("pesr_torch/csrc/upsampler.cu",
@@ -4249,7 +4434,8 @@ def main() -> int:
          "artifact_launches_per_forward":
              serve_res["launches"][name] / serve_res["forwards"],
          "train_rows": [r for r in train_res["rows"]
-                        if r["kernel"].startswith(name)]}
+                        if r["kernel"].startswith(name)],
+         **bench_keys(bench_res, name)}
         for name, (src, rep) in sources.items()]}
     # The int8 block replaces XLA's fusion of JAX's int8 body_fn (no
     # pallas_call); its path is the quant phase's int8 engine run.
@@ -4272,7 +4458,8 @@ def main() -> int:
                      if blk["x4"]["turns"] else None),
         "artifact_launches_per_forward":
             serve_res["int8_launches"]["fused_resblock_int8"]
-            / serve_res["int8_forwards"]})
+            / serve_res["int8_forwards"],
+        **bench_keys(bench_res, "fused_resblock_int8")})
     conv = quant_res["conv"]
     print(f"int8 tail conv and x8 int8 upfold (library route, torch._int_mm;"
           f" not a kernel port): {conv['ms']:.3f} ms at the x4 tail shape, "

@@ -100,10 +100,11 @@ def test_port_imports_nothing_of_jax_or_pesr_tpu():
             "pesr_torch/data/native/__init__.py",
             "pesr_torch/utils/memory.py", "pesr_torch/serving.py",
             "pesr_torch/parallel/__init__.py",
-            "pesr_torch/parallel/mesh.py"} <= scanned
+            "pesr_torch/parallel/mesh.py", "pesr_torch/bench.py"} <= scanned
+    # "bench": the repo's bench.py, the JAX package's benchmark
     bad = [(os.path.relpath(f, _REPO), m) for f in files for m in _imports(f)
            if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                  "pesr_tpu")]
+                                  "pesr_tpu", "bench")]
     assert not bad, bad
     # the discriminator's spectral norm is the JAX package's stateless
     # one, not torch's (whose persistent u is another algorithm)

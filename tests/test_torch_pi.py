@@ -2,13 +2,12 @@
 ma_features, pirm}.py``) and ``--eval_pi`` against the JAX package's, on
 the CPU.
 
-Both sides are float64 numpy on the same uint8 images; the port swaps
-scipy's gamma for ``math.gamma`` and scipy's DCT for the orthonormal
-DCT-II matrix, which move values by ~1e-15 relative.  Tolerances: the
-feature arrays 1e-9 relative, NIQE, Ma and PI per image 1e-6 absolute
-(a larger gap would be a fault, not noise); ``val_pi`` of the whole
-self-validation 1e-2 (the two engines' SR outputs may differ by 1 LSB on
-< 0.1% of their values).
+Both sides are float64 numpy on the same uint8 images, with scipy's
+gamma (NIQE's table) and scipy's DCT (the Ma features) on both.
+Tolerances: the NIQE and Ma feature arrays and a refit NIQE model's
+mu and cov bitwise; NIQE, Ma and PI per image 1e-6 absolute (a larger
+gap would be a fault, not noise); ``val_pi`` of the whole self-validation 1e-2 (the
+two engines' SR outputs may differ by 1 LSB on < 0.1% of their values).
 """
 
 import importlib
@@ -94,12 +93,12 @@ def test_niqe_ma_and_pi_per_image_match_jax(source):
     for img in imgs:
         jf, pf = (J["niqe"].extract_niqe_features(img),
                   P["niqe"].extract_niqe_features(img))
-        assert pf.shape == jf.shape and _rel(pf, jf) < 1e-9
+        np.testing.assert_array_equal(pf, jf)
         jm, pm = (J["ma_features"].extract_ma_features(img),
                   P["ma_features"].extract_ma_features(img))
         assert set(pm) == set(jm)
         for k in jm:
-            assert _rel(pm[k], jm[k]) < 1e-9, k
+            np.testing.assert_array_equal(pm[k], jm[k], err_msg=k)
         for fn in (("niqe", "niqe"), ("ma", "ma_score"),
                    ("ma", "ma_score_approx"), ("pirm", "perceptual_index")):
             want = getattr(J[fn[0]], fn[1])(img)
@@ -111,7 +110,8 @@ def test_fit_and_pi_on_a_refit_model_match_jax():
     imgs = [SyntheticImages(3, 192, 192, seed=4).get(i) for i in range(3)]
     jm = J["niqe"].fit_niqe_model(imgs, provenance="t")
     pm = P["niqe"].fit_niqe_model(imgs, provenance="t")
-    assert _rel(pm.mu, jm.mu) < 1e-9 and _rel(pm.cov, jm.cov) < 1e-9
+    np.testing.assert_array_equal(pm.mu, jm.mu)
+    np.testing.assert_array_equal(pm.cov, jm.cov)
     img = _synthetic_sr(192, 192, seed=5)
     assert abs(P["pirm"].perceptual_index(img, pm)
                - J["pirm"].perceptual_index(img, jm)) <= 1e-6

@@ -26,8 +26,10 @@ per device: the process group from the ``PESR_*`` contract or torchrun,
 in test mode the engine's ``--mesh_axis batch|tiles`` (each rank
 upscales its block of the batch, or its share of each image's tiles).
 Test mode also has ``--export_artifact PATH`` (the serving artifact of
-``pesr_torch/serving.py``).  Each parser takes the flags its CLI reads;
-a flag it does not take is an argparse error, not ignored.  So these
+``pesr_torch/serving.py``) and its own ``--profile_dir`` (a
+torch.profiler trace of the timed pass over the eval set).  Each parser
+takes the flags its CLI reads; a flag it does not take is an argparse
+error, not ignored.  So these
 flags of JAX's shared parser are not in the port's: in test mode the
 training flags JAX's ``test.py`` never reads (``--param_dtype``,
 ``--batch_size``, ``--patch_size``, ``--grad_accum``, ``--fold_train``,
@@ -104,7 +106,7 @@ class Opts:
     eval_pi: bool = True          # PIRM PI (NIQE + Ma) in self-validation
     resume: bool = False
     trim_host_heap: bool = False  # malloc_trim(0) at epoch boundaries
-    profile_dir: str = ""         # torch.profiler trace of steps 5-9
+    profile_dir: str = ""         # torch.profiler trace: steps 5-9 / test pass
     # inference (the training self-validation tiles as the JAX one: 96)
     model_path: str = ""
     output_dir: str = "results"
@@ -238,6 +240,9 @@ def build_parser(mode: str = "test") -> argparse.ArgumentParser:
                        help="write the tiled engine as a serving artifact "
                             "(pesr_torch/serving.py) for the first image's "
                             "shape at --infer_batch and exit")
+        g.add_argument("--profile_dir", default=d.profile_dir,
+                       help="write a torch.profiler Chrome trace of the "
+                            "timed pass over the eval set here")
         g.add_argument("--mesh_axis", default=d.mesh_axis,
                        choices=["batch", "tiles"],
                        help="multi-device inference: shard the image batch "

@@ -62,6 +62,7 @@ from pesr_torch.ops.kernels.common import conv3x3_nhwc
 from pesr_torch.ops.pixel_shuffle import pixel_shuffle
 from pesr_torch.scales import fold_min_halo, upsample_stages
 from pesr_torch.utils.device import full_f32
+from pesr_torch.utils.spans import span
 
 Conv = Tuple[torch.Tensor, torch.Tensor]
 
@@ -80,23 +81,27 @@ def _trunk(x: torch.Tensor, head: Conv, blocks: Sequence[tuple],
            block_fn: Callable, tail: Conv) -> torch.Tensor:
     """Head conv, the residual blocks (``block_fn(y, *blk)`` runs one on
     the weights as each apply holds them), tail conv + global skip."""
-    head_y = conv3x3_nhwc(x, *head)
+    with span("pesr.head"):
+        head_y = conv3x3_nhwc(x, *head)
     y = head_y
-    for blk in blocks:
-        y = block_fn(y, *blk)
-    return conv3x3_nhwc(y, *tail) + head_y
+    with span("pesr.trunk"):
+        for blk in blocks:
+            y = block_fn(y, *blk)
+    with span("pesr.tail"):
+        return conv3x3_nhwc(y, *tail) + head_y
 
 
 def _upsample(y: torch.Tensor, stages: Sequence[tuple], stage_fn: Callable,
               out: Conv) -> torch.Tensor:
     """The upsampler chain and the out conv; ``stage_fn(y, *p)`` runs an
     x2 stage."""
-    for f, p in stages:
-        if f == 2:
-            y = stage_fn(y, *p)
-        else:
-            y = pixel_shuffle(conv3x3_nhwc(y, *p), f).contiguous()
-    return conv3x3_nhwc(y, *out).float()
+    with span("pesr.upsample"):
+        for f, p in stages:
+            if f == 2:
+                y = stage_fn(y, *p)
+            else:
+                y = pixel_shuffle(conv3x3_nhwc(y, *p), f).contiguous()
+        return conv3x3_nhwc(y, *out).float()
 
 
 class KernelApply:
@@ -149,8 +154,9 @@ class KernelApply:
         y = self._trunk(x)
         if self.fold is None:
             return _upsample(y, self.stages, fused_upsampler_stage, self.out)
-        return pixel_shuffle(folded_conv(y, *self.fold, self.pads),
-                             self.scale).float()
+        with span("pesr.upsample"):
+            return pixel_shuffle(folded_conv(y, *self.fold, self.pads),
+                                 self.scale).float()
 
     @torch.no_grad()
     def _uint8(self, x: torch.Tensor) -> torch.Tensor:
@@ -158,8 +164,10 @@ class KernelApply:
         shuffle: ``denormalize_to_uint8`` is per element, so this equals
         quantising after bit for bit, and the shuffle's copy of the HR
         tensor moves 1-byte pixels."""
-        y = folded_conv(self._trunk(x), *self.fold, self.pads)
-        return pixel_shuffle(denormalize_to_uint8(y), self.scale)
+        y = self._trunk(x)
+        with span("pesr.upsample"):
+            y = folded_conv(y, *self.fold, self.pads)
+            return pixel_shuffle(denormalize_to_uint8(y), self.scale)
 
 
 class Float32Apply:

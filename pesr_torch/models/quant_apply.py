@@ -54,6 +54,7 @@ from pesr_torch.ops.kernels.resblock_int8 import (  # noqa: F401
     fused_resblock_int8, pack_int8_block_weights, quantize_act, requant)
 from pesr_torch.ops.pixel_shuffle import pixel_shuffle
 from pesr_torch.scales import fold_min_halo
+from pesr_torch.utils.spans import span
 
 QConv = Dict[str, torch.Tensor]
 
@@ -257,14 +258,20 @@ class Int8Apply:
         return fused_resblock_int8(y, *self.blocks[i], self.res_scale)
 
     def _trunk(self, x: torch.Tensor) -> torch.Tensor:
-        """Head, the int8 body, the int8 tail + skip and the upfold:
-        NHWC bf16 before the pixel shuffle."""
+        """Head, the int8 body and the int8 tail + skip: NHWC bf16."""
         self.forwards += 1
-        h = _conv_bf16(x, *self.head)
+        with span("pesr.head"):
+            h = _conv_bf16(x, *self.head)
         y = h
-        for i in range(len(self.blocks)):
-            y = self.block(y, i)
-        y = self._qconv(y, self.tail) + h
+        with span("pesr.trunk"):
+            for i in range(len(self.blocks)):
+                y = self.block(y, i)
+        with span("pesr.tail"):
+            return self._qconv(y, self.tail) + h
+
+    def _upfold(self, y: torch.Tensor) -> torch.Tensor:
+        """The folded upsampler conv (int8 or bf16): NHWC bf16 before the
+        pixel shuffle."""
         up = self.upfold
         if isinstance(up, dict):
             return self._qconv(y, up, self.pads)
@@ -272,12 +279,16 @@ class Int8Apply:
 
     @torch.no_grad()
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return pixel_shuffle(self._trunk(x), self.scale)
+        y = self._trunk(x)
+        with span("pesr.upsample"):
+            return pixel_shuffle(self._upfold(y), self.scale)
 
     @torch.no_grad()
     def _uint8(self, x: torch.Tensor) -> torch.Tensor:
-        return pixel_shuffle(denormalize_to_uint8(self._trunk(x)),
-                             self.scale)
+        y = self._trunk(x)
+        with span("pesr.upsample"):
+            return pixel_shuffle(denormalize_to_uint8(self._upfold(y)),
+                                 self.scale)
 
 
 def _device(generator: Generator) -> torch.device:

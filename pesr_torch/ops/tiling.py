@@ -42,6 +42,7 @@ import torch
 from pesr_torch import parallel
 from pesr_torch.data.augment import denormalize_to_uint8, normalize_uint8
 from pesr_torch.utils.device import resolve_device
+from pesr_torch.utils.spans import span
 
 
 def self_ensemble_upscale(engine: "WholeImageUpscaler",
@@ -350,18 +351,20 @@ class BatchTiledUpscaler:
         tile_fn, use_u8 = select_uint8_apply(self._apply_fn, float_out)
 
         def core(tile: torch.Tensor) -> torch.Tensor:
-            out = tile_fn(normalize_uint8(tile))[
-                :, ov_h * s:(ov_h + th) * s, ov_w * s:(ov_w + tw) * s]
-            return (out if use_u8 else _to_255(out) if float_out
-                    else denormalize_to_uint8(out))
+            with span("pesr.forward"):
+                out = tile_fn(normalize_uint8(tile))[
+                    :, ov_h * s:(ov_h + th) * s, ov_w * s:(ov_w + tw) * s]
+                return (out if use_u8 else _to_255(out) if float_out
+                        else denormalize_to_uint8(out))
 
         def run(imgs_u8: torch.Tensor,
                 pos: Optional[torch.Tensor] = None) -> torch.Tensor:
-            x = _edge_pad_capped(imgs_u8, (ov_h, nh * th - h + ov_h,
-                                           ov_w, nw * tw - w + ov_w))
-            cuts = [x[:, i * th:i * th + th + 2 * ov_h,
-                      j * tw:j * tw + tw + 2 * ov_w]
-                    for i in range(nh) for j in range(nw)]
+            with span("pesr.cut"):
+                x = _edge_pad_capped(imgs_u8, (ov_h, nh * th - h + ov_h,
+                                               ov_w, nw * tw - w + ov_w))
+                cuts = [x[:, i * th:i * th + th + 2 * ov_h,
+                          j * tw:j * tw + tw + 2 * ov_w]
+                        for i in range(nh) for j in range(nw)]
             if pos is not None:
                 # a tensor (an input of the exported spatial program), so
                 # its tiles are selected on the device
@@ -371,12 +374,13 @@ class BatchTiledUpscaler:
             canvas = None
             for k, tile in enumerate(cuts):
                 out = core(tile)
-                if canvas is None:
-                    canvas = out.new_empty((out.shape[0], nh * th * s,
-                                            nw * tw * s, 3))
-                i, j = divmod(k, nw)
-                canvas[:, i * th * s:(i + 1) * th * s,
-                       j * tw * s:(j + 1) * tw * s] = out
+                with span("pesr.canvas"):
+                    if canvas is None:
+                        canvas = out.new_empty((out.shape[0], nh * th * s,
+                                                nw * tw * s, 3))
+                    i, j = divmod(k, nw)
+                    canvas[:, i * th * s:(i + 1) * th * s,
+                           j * tw * s:(j + 1) * tw * s] = out
             return canvas
 
         return run, (nh, nw, th, tw)
@@ -389,9 +393,11 @@ class BatchTiledUpscaler:
         ``float_out`` the canvas is unquantised float32 on the [0, 255]
         scale (the self-ensemble's branches).  On a mesh, every rank
         passes the whole batch and gets the whole canvas."""
-        imgs = _as_device_batch(imgs_u8, self.device, 4)
+        with span("pesr.upload"):
+            imgs = _as_device_batch(imgs_u8, self.device, 4)
         bsz, h, w = imgs.shape[:3]
-        run, (nh, nw, _, _) = self._build(bsz, h, w, float_out)
+        with span("pesr.plan"):
+            run, (nh, nw, _, _) = self._build(bsz, h, w, float_out)
         if self._ranks("tiles") > 1:
             return gather_canvas(self.mesh, run(
                 imgs, spatial_positions(self.mesh, nh * nw)), nh, nw)
@@ -474,16 +480,24 @@ class BatchTiledUpscaler:
                      se: bool = False) -> list:
         """Upscale a list of HWC uint8 images of possibly mixed sizes,
         one device batch per same-shape chunk (``se``: its x8
-        self-ensemble); order is preserved."""
+        self-ensemble); order is preserved.  Under a running profiler the
+        call is one ``pesr.request`` range, and each chunk's steps are
+        ranges inside it (``pesr.stack``, ``pesr.upload``, ``pesr.plan``,
+        ``pesr.cut``, a ``pesr.forward`` and a ``pesr.canvas`` per tile
+        position, ``pesr.download``)."""
         results: list = [None] * len(imgs)
-        for shape, chunk in self._chunks(imgs, batch_size):
-            batch = np.stack([imgs[i] for i in chunk])
-            h, w = shape[:2]
-            out = (self.upscale_batch_se_device(batch) if se
-                   else self.upscale_batch_device(batch)[
-                       :, :h * self.scale, :w * self.scale]).cpu().numpy()
-            for k, i in enumerate(chunk):
-                results[i] = out[k]
+        with span("pesr.request"):
+            for shape, chunk in self._chunks(imgs, batch_size):
+                with span("pesr.stack"):
+                    batch = np.stack([imgs[i] for i in chunk])
+                h, w = shape[:2]
+                out = (self.upscale_batch_se_device(batch) if se
+                       else self.upscale_batch_device(batch))
+                with span("pesr.download"):
+                    out = out[:, :h * self.scale,
+                              :w * self.scale].cpu().numpy()
+                for k, i in enumerate(chunk):
+                    results[i] = out[k]
         return results
 
 

@@ -33,6 +33,11 @@ and rank 0 writes the PNGs.  ``--export_artifact PATH`` writes the tiled
 engine as a serving artifact (``pesr_torch/serving.py``) for the first
 image's shape at ``--infer_batch`` and exits; it refuses whole-image
 mode, the self-ensemble and a batch-DP mesh, as JAX's ``test.py`` does.
+
+``--profile_dir D`` writes ``D/<dataset>.pt.trace.json``, a
+torch.profiler Chrome trace of the timed pass over the eval set, with
+the engine's and the apply's ranges (``pesr.request``, ``pesr.forward``,
+..., ``utils/spans.py``) beside the device's kernels.
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ from pesr_torch.training.state import COMPUTE_DTYPES
 from pesr_torch.utils.device import resolve_device
 from pesr_torch.utils.image_io import imwrite_uint8
 from pesr_torch.utils.logging import AverageMeter
+from pesr_torch.utils.spans import start_profile, stop_profile
 
 
 def _load_state_dict(path: str, opts: Opts) -> dict:
@@ -215,9 +221,16 @@ def run(argv=None) -> dict:
               f"overlap={opts.tile_overlap})"
               + (" + x8 self-ensemble" if se else ""))
 
-    t0 = time.perf_counter()
-    srs = run_all()  # numpy results: the device work has finished
-    elapsed = time.perf_counter() - t0
+    prof = (start_profile(device)
+            if opts.profile_dir and parallel.is_primary(mesh) else None)
+    try:
+        t0 = time.perf_counter()
+        srs = run_all()  # numpy results: the device work has finished
+        elapsed = time.perf_counter() - t0
+    finally:
+        if prof is not None:
+            stop_profile(prof, device, os.path.join(
+                opts.profile_dir, f"{opts.test_dataset}.pt.trace.json"))
 
     out_dir = os.path.join(opts.output_dir, opts.test_dataset)
     psnr_m, ssim_m, bicubic_m = AverageMeter(), AverageMeter(), AverageMeter()

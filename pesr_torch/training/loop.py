@@ -40,7 +40,6 @@ barrier, which the others would not reach).
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 import time
@@ -63,6 +62,7 @@ from pesr_torch.training.steps import make_gan_step, make_pretrain_step
 from pesr_torch.utils.device import host_to_device
 from pesr_torch.utils.logging import AverageMeter, MetricLogger
 from pesr_torch.utils.memory import trim_host_heap
+from pesr_torch.utils.spans import span, start_profile, stop_profile
 
 PROFILE_STEPS = range(5, 10)  # steps after the start that --profile_dir traces
 
@@ -334,9 +334,8 @@ def _train_epochs(opts, state, step_fn, aug, train_iter, logger, summary,
             k = state.step - start_step
             if (opts.profile_dir and k == PROFILE_STEPS[0]
                     and parallel.is_primary(state.mesh)):
-                box["profiler"] = _start_profile(device)
-            with (torch.profiler.record_function("train_step")
-                  if box["profiler"] else contextlib.nullcontext()):
+                box["profiler"] = start_profile(device)
+            with span("train_step"):
                 metrics = _one_step(opts, state, step_fn, aug, train_iter,
                                     device)
             if k == PROFILE_STEPS[-1]:
@@ -386,30 +385,16 @@ def _one_step(opts, state, step_fn, aug, train_iter, device):
     return step_fn(state, lr_img, hr_img)
 
 
-def _start_profile(device: torch.device) -> torch.profiler.profile:
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    prof = torch.profiler.profile(activities=acts)
-    prof.start()
-    return prof
-
-
 def _stop_profile(opts, box, device: torch.device, why: str = "") -> None:
-    """Stop an open ``--profile_dir`` trace (after the device has caught
-    up) and write it as ``steps_<a>-<b>.pt.trace.json``."""
+    """Stop an open ``--profile_dir`` trace and write it as
+    ``steps_<a>-<b>.pt.trace.json``."""
     prof = box.get("profiler")
     if prof is None:
         return
     box["profiler"] = None
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    prof.stop()
-    os.makedirs(opts.profile_dir, exist_ok=True)
-    path = os.path.join(opts.profile_dir, f"steps_{PROFILE_STEPS[0]}-"
-                        f"{PROFILE_STEPS[-1]}.pt.trace.json")
-    prof.export_chrome_trace(path)
-    print(f"[profile] trace written to {path}" + (f" ({why})" if why else ""))
+    stop_profile(prof, device, os.path.join(
+        opts.profile_dir,
+        f"steps_{PROFILE_STEPS[0]}-{PROFILE_STEPS[-1]}.pt.trace.json"), why)
 
 
 def _validate(opts, state, logger, summary, box, extra) -> None:

@@ -1,2 +1,2 @@
 """Small host utilities: device selection, PNG writing, running means,
-host-heap trimming."""
+host-heap trimming, profiler spans."""

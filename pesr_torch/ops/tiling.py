@@ -227,7 +227,21 @@ class BatchTiledUpscaler:
     the same geometry, and a batch-mode rank's images are bitwise the
     single-process engine's on that block (on the card the whole batch
     through one engine may differ in the last bits: the kernels'
-    schedules and cuDNN's choices depend on the batch)."""
+    schedules and cuDNN's choices depend on the batch).
+
+    Host staging (:meth:`upscale_many`): the engine owns one input and
+    one output buffer of flat uint8 host memory, page-locked when the
+    device is CUDA, so a large chunk's upload and download run at the
+    host link's rate (a chunk whose result has fewer than
+    ``_STAGED_BYTES`` takes pageable copies instead).  A chunk uses a
+    view of a buffer's first bytes; a buffer is replaced by a fresh,
+    larger one only when a chunk needs more bytes than it holds
+    (``staging_grows`` counts these allocations, ``staged`` the chunks
+    served), so the page-locked bytes are at most the largest staged
+    chunk's input plus its output.  Invariant: a staging view is
+    rewritten only after the copy that read it has been waited on, since
+    each chunk's upload and download wait on the host before the next
+    chunk starts; and no result aliases the staging."""
 
     # "auto" LR-pixel budget for one forward, summed over the image batch:
     # at most this many LR pixels (halo included) go through the
@@ -244,6 +258,14 @@ class BatchTiledUpscaler:
     # tile at batch 2.  The v5e budget of the JAX package (1.5M, 16 GB
     # HBM, folded upsampler) does not carry over.
     _AUTO_PIXEL_BUDGET = 500_000
+
+    # A chunk whose result has at least this many bytes goes through the
+    # host staging (:meth:`upscale_many`); a smaller one takes pageable
+    # copies.  On the H100's host the staging cut a 66 MB result's
+    # download from ~32 ms to ~4 ms, but made single photos of 0.46-8.3
+    # MB of result 1.2-1.9% slower a request; alone, its copies beat the
+    # pageable one from ~16 MB on (16.6 MB: 1.06 against 1.45 ms).
+    _STAGED_BYTES = 16 << 20
 
     def __init__(self, apply_fn: Callable, scale: int, tile_size=128,
                  overlap: int = 8, device="cuda", mesh=None,
@@ -267,6 +289,24 @@ class BatchTiledUpscaler:
         self.device = (mesh.device if mesh is not None
                        else resolve_device(device))
         self._apply_fn = apply_fn
+        self.stage: dict = {"in": None, "out": None}   # flat uint8
+        self.staging_grows = 0
+        self.staged = 0
+
+    def _staging(self, name: str, shape: Tuple[int, ...]) -> torch.Tensor:
+        """A ``shape`` view of the first bytes of staging buffer ``name``,
+        which is first replaced by a fresh one of exactly the bytes
+        needed when it holds fewer."""
+        n = math.prod(shape)
+        buf = self.stage[name]
+        if buf is None or buf.numel() < n:
+            with span("pesr.pin"):
+                self.stage[name] = None     # the old buffer goes first
+                buf = self.stage[name] = torch.empty(
+                    n, dtype=torch.uint8,
+                    pin_memory=self.device.type == "cuda")
+            self.staging_grows += 1
+        return buf[:n].view(shape)
 
     def _ranks(self, axis: str) -> int:
         """P when the engine splits ``axis`` over a mesh, else 1."""
@@ -460,42 +500,70 @@ class BatchTiledUpscaler:
     def warmup_many(self, imgs, batch_size: int = 8,
                     se: bool = False) -> None:
         """Run one batch of every distinct (batch, shape) that
-        :meth:`upscale_many` will see, so kernel builds, cuDNN algorithm
-        searches and allocator growth land before a timing loop; ``se``:
-        the self-ensemble's (both orientations) instead."""
+        :meth:`upscale_many` will see, on its path, so kernel builds,
+        cuDNN algorithm searches, allocator and staging growth land
+        before a timing loop; ``se``: the self-ensemble's (both
+        orientations) instead."""
         seen = set()
         for shape, chunk in self._chunks(imgs, batch_size):
             key = (len(chunk),) + tuple(shape)
             if key not in seen:
                 seen.add(key)
-                z = np.zeros(key, np.uint8)
-                if se:
-                    self.upscale_batch_se_device(z)
-                else:
-                    self.upscale_batch_device(z)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+                self._upscale_chunk(list(np.zeros(key, np.uint8)), se)
+
+    @torch.no_grad()
+    def _upscale_chunk(self, imgs: list, se: bool) -> np.ndarray:
+        """Same-shape HWC uint8 images -> [B, H*s, W*s, 3] uint8 in fresh
+        host memory.  From ``_STAGED_BYTES`` of result on, through the
+        staging (see the class docstring): the images stacked straight
+        into the input view and uploaded in one copy, the cropped canvas
+        downloaded in one copy into the output view, then copied out;
+        below it, the stack uploaded and the crop downloaded as they
+        are.  Every copy waits on the host."""
+        h, w = imgs[0].shape[:2]
+        s = self.scale
+        shape = (len(imgs), h * s, w * s, 3)
+        staged = math.prod(shape) >= self._STAGED_BYTES
+        with span("pesr.stack"):
+            if staged:
+                batch = self._staging("in",
+                                      (len(imgs),) + tuple(imgs[0].shape))
+                np.stack(imgs, out=batch.numpy(), casting="no")
+            else:
+                batch = np.stack(imgs)
+        out = (self.upscale_batch_se_device(batch) if se
+               else self.upscale_batch_device(batch))[:, :h * s, :w * s]
+        with span("pesr.download"):
+            if not staged:
+                return out.cpu().numpy()
+            # zeroed now, while the device computes: its first-touch page
+            # faults (~22 ms for 66 MB on the H100's host) then stay out
+            # of the copy-out after the wait
+            res = torch.zeros(shape, dtype=torch.uint8)
+            stage = self._staging("out", shape)
+            stage.copy_(out)
+            res.copy_(stage)
+        self.staged += 1
+        return res.numpy()
 
     def upscale_many(self, imgs, batch_size: int = 8,
                      se: bool = False) -> list:
         """Upscale a list of HWC uint8 images of possibly mixed sizes,
         one device batch per same-shape chunk (``se``: its x8
-        self-ensemble); order is preserved.  Under a running profiler the
-        call is one ``pesr.request`` range, and each chunk's steps are
-        ranges inside it (``pesr.stack``, ``pesr.upload``, ``pesr.plan``,
-        ``pesr.cut``, a ``pesr.forward`` and a ``pesr.canvas`` per tile
-        position, ``pesr.download``)."""
+        self-ensemble); order is preserved.  A chunk of ``_STAGED_BYTES``
+        of result or more goes up and comes back through the engine's
+        host staging (page-locked on CUDA; a staging view is rewritten
+        only after the copy that read it was waited on), and each result
+        is a view of a fresh array of its chunk, never of the staging.
+        Under a running profiler the call is one ``pesr.request`` range,
+        and each chunk's steps are ranges inside it (``pesr.stack``,
+        ``pesr.upload``, ``pesr.plan``, ``pesr.cut``, a ``pesr.forward``
+        and a ``pesr.canvas`` per tile position, ``pesr.download``;
+        ``pesr.pin`` where a staging buffer grows)."""
         results: list = [None] * len(imgs)
         with span("pesr.request"):
-            for shape, chunk in self._chunks(imgs, batch_size):
-                with span("pesr.stack"):
-                    batch = np.stack([imgs[i] for i in chunk])
-                h, w = shape[:2]
-                out = (self.upscale_batch_se_device(batch) if se
-                       else self.upscale_batch_device(batch))
-                with span("pesr.download"):
-                    out = out[:, :h * self.scale,
-                              :w * self.scale].cpu().numpy()
+            for _, chunk in self._chunks(imgs, batch_size):
+                out = self._upscale_chunk([imgs[i] for i in chunk], se)
                 for k, i in enumerate(chunk):
                     results[i] = out[k]
         return results

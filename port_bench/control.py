@@ -8,9 +8,12 @@ For each seed, the cell's own set-up and ``--requests`` requests of its
 traffic through the timed path, then the comparison with the cell's
 reference: one JSON line per seed with the numbers and whether they
 hold the cell's limits.  ``--control`` puts the control in the
-program's place: on an int8 cell the reference itself in W4A4 (int4,
-the precision below the configuration's int8), on a bf16 cell the
-program's own int8 W8A8 path.  The benchmark's runs never run it.
+program's place, as the configuration's family gives it: the family's
+reference one precision below the path's
+(``reference/families/<family>.py`` ``control``; EDSR's int8 cells: the
+reference in W4A4), else the program's own lower path
+(``programs/<family>.py`` ``CONTROL_PATHS``; EDSR's bf16 cells: its int8
+W8A8 path).  The benchmark's runs never run it.
 """
 
 from __future__ import annotations
@@ -23,16 +26,16 @@ import sys
 import numpy as np
 import torch
 
+from port_bench import programs
 from port_bench.runners.upscale import (Program, Sample, compare,
-                                        reference_fn, run_window, sync)
-from port_bench.reference import tiling
-from port_bench.reference.weights import make_state_dict
+                                        run_window, sync)
+from port_bench.reference import families, tiling
 from port_bench.run import REHEARSAL_SHRINK, ROOT, find_cell, load_json
 from port_bench.traffic.generate import Traffic
 
 
-class W4A4Engine:
-    """The W4A4 reference in the program's place, at the engine's grid,
+class ReferenceEngine:
+    """A reference forward in the program's place, at the engine's grid,
     rounded to uint8 as the program rounds."""
 
     def __init__(self, program: Program, forward, model: dict, mix: dict,
@@ -59,16 +62,22 @@ def readings(workload: str, seed: int, control: bool, requests: int,
         model = {**model, **model["rehearsal"]}
     else:
         device = torch.device("cuda", 0)
-    sd = make_state_dict(model, seed, device)
+    family = families.load(model)
+    sd = family.make_state_dict(model, seed, device)
     traffic = Traffic(mix, model["scale"], seed, device, shrink)
-    int8_cell = mix["path"] == "int8"
-    program = Program(model, mix, sd, traffic.crops, device,
-                      path="int8" if control else None)
+    path = forward = None
+    if control:
+        forward = family.control(model, mix, sd, traffic.crops, device)
+        if forward is None:
+            path = programs.load(model).CONTROL_PATHS.get(mix["path"])
+            if path is None:
+                raise SystemExit(f"{workload}: the family {model['family']!r} "
+                                 f"has no control for the {mix['path']!r} "
+                                 f"path")
+    program = Program(model, mix, sd, traffic.crops, device, path=path)
     engine = program
-    if control and int8_cell:
-        engine = W4A4Engine(program, reference_fn(model, mix, sd,
-                                                  traffic.crops, device, 4),
-                            model, mix, device)
+    if forward is not None:
+        engine = ReferenceEngine(program, forward, model, mix, device)
     for imgs in traffic.first_of_each_class():
         engine(imgs)
     sync(device)
@@ -78,11 +87,11 @@ def readings(workload: str, seed: int, control: bool, requests: int,
                       program.halos, max_requests=requests)
     sync(device)
     min_halo = program.min_halo
-    del program, engine
+    del program, engine, forward
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    forward = reference_fn(model, mix, sd, traffic.crops, device)
+    forward = family.reference(model, mix, sd, traffic.crops, device)
     tally = compare(sample.items(), reqs, model, mix, min_halo, forward,
                     device)
     numbers = tally.numbers()

@@ -1,7 +1,9 @@
-"""The whole step's share of the chip's peaks: the folded model's least
-time over the images' own LR pixels completed in the window (no tiles,
-no halo; the int8 path's residual blocks and tail conv at the int8
-peak, the rest at bf16), over the window's seconds, in %."""
+"""The whole step's share of the chip's peaks: the model's least time
+over the images' own LR pixels completed in the window (no tiles, no
+halo; its family's operations per LR pixel, the path's low-precision
+part at the int8 peak, the rest at bf16; EDSR: the folded form, the
+int8 path's residual blocks and tail conv at int8), over the window's
+seconds, in %."""
 
 from port_bench.reference.counts import model_seconds
 

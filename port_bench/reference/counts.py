@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import math
 
+from port_bench.reference import families
 from port_bench.reference.weights import upsample_stages
 
 PEAK_BF16 = 989e12      # FLOP/s
@@ -34,24 +35,11 @@ def fold_support(scale: int) -> int:
     return hi_all - lo_all + 1
 
 
-def model_ops_per_lr_px(model: dict, path: str):
-    """``(low, bf16)`` operations per LR pixel of the folded form: the
-    residual blocks and the tail conv at the path's low precision (int8
-    on the int8 path, else nothing), the head conv and the folded
-    upsampler (``3 s^2`` outputs) in bf16."""
-    c, img, s = model["num_channels"], model["img_channels"], model["scale"]
-    trunk = 2 * model["num_blocks"] * conv_ops(c, c) + conv_ops(c, c)
-    k = fold_support(s)
-    edge = conv_ops(img, c) + conv_ops(c, img * s * s, k)
-    if path == "int8":
-        return trunk, edge
-    return 0, trunk + edge
-
-
 def model_seconds(model: dict, path: str, lr_px: float) -> float:
-    """The folded model's least time over ``lr_px`` LR pixels at the
-    peaks."""
-    low, bf16 = model_ops_per_lr_px(model, path)
+    """The model's least time over ``lr_px`` LR pixels at the peaks, from
+    its family's ``(low, bf16)`` operations per LR pixel
+    (``reference/families/``)."""
+    low, bf16 = families.load(model).ops_per_lr_px(model, path)
     return lr_px * (low / PEAK_INT8 + bf16 / PEAK_BF16)
 
 

@@ -1,13 +1,14 @@
-"""The benchmark's weights: an EDSR-layout state dict drawn on the device
-from the run's seed, handed alike to the program and the references.
+"""The benchmark's weights: a state dict of convolutions drawn on the
+device from the run's seed, handed alike to the program and the
+references.  A family lists its convs (``reference/families/``); the
+draw is the same for all.
 
 Every conv kernel is truncated-normal at +-2 sigma with variance
 1 / fan_in (flax's ``lecun_normal``, the scale of the port's own
 initialisation), drawn as one flat tensor by one ``torch.Generator`` on
-the device and cut into the leaves; the biases are one more draw,
-normal with ``bias_std``.  The names are EDSR's ``Sequential`` ones
-(``head.0``, ``body.{i}.body.{0,2}``, ``body.{n}``, ``tail.0.{2s}``,
-``tail.1``), which ``torch.nn.Module.load_state_dict`` takes.
+the device and cut into the leaves in the order listed; the biases are
+one more draw, normal with ``bias_std``.  Leaf ``p`` of the list is
+``<p>.weight`` and ``<p>.bias``.
 """
 
 from __future__ import annotations
@@ -35,34 +36,28 @@ def upsample_stages(scale: int) -> Tuple[int, ...]:
     return tuple(stages)
 
 
-def conv_shapes(model: dict) -> List[Tuple[str, Tuple[int, int, int, int]]]:
-    """``(prefix, OIHW shape)`` of every conv, in forward order."""
-    c, img = model["num_channels"], model["img_channels"]
-    shapes = [("head.0", (c, img, 3, 3))]
-    for i in range(model["num_blocks"]):
-        shapes += [(f"body.{i}.body.0", (c, c, 3, 3)),
-                   (f"body.{i}.body.2", (c, c, 3, 3))]
-    shapes.append((f"body.{model['num_blocks']}", (c, c, 3, 3)))
-    for s, f in enumerate(upsample_stages(model["scale"])):
-        shapes.append((f"tail.0.{2 * s}", (f * f * c, c, 3, 3)))
-    shapes.append(("tail.1", (img, c, 3, 3)))
-    return shapes
+def conv_params(convs: List[Tuple[str, Tuple[int, int, int, int]]]
+                ) -> List[Tuple[str, tuple]]:
+    """``(name, shape)`` of every parameter of ``convs`` (``(prefix,
+    OIHW shape)``): each conv's kernel, then its bias."""
+    return [p for name, shape in convs
+            for p in ((f"{name}.weight", shape), (f"{name}.bias", shape[:1]))]
 
 
 @torch.no_grad()
-def make_state_dict(model: dict, seed: int, device: torch.device
-                    ) -> Dict[str, torch.Tensor]:
-    """float32 state dict of ``model`` (a configuration's sizes) on
+def draw_convs(convs: List[Tuple[str, Tuple[int, int, int, int]]],
+               bias_std: float, seed: int, device: torch.device
+               ) -> Dict[str, torch.Tensor]:
+    """float32 state dict of ``convs`` (``(prefix, OIHW shape)``) on
     ``device``, drawn from ``seed``."""
     g = torch.Generator(device=device).manual_seed(int(seed))
-    shapes = conv_shapes(model)
-    sizes = [math.prod(s) for _, s in shapes]
+    sizes = [math.prod(s) for _, s in convs]
     flat = torch.empty(sum(sizes), dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(flat, 0.0, 1.0, -2.0, 2.0, generator=g)
-    biases = torch.randn(sum(s[0] for _, s in shapes), generator=g,
-                         device=device) * float(model["bias_std"])
+    biases = torch.randn(sum(s[0] for _, s in convs), generator=g,
+                         device=device) * float(bias_std)
     sd, at, bat = {}, 0, 0
-    for (name, shape), n in zip(shapes, sizes):
+    for (name, shape), n in zip(convs, sizes):
         std = math.sqrt(1.0 / (shape[1] * shape[2] * shape[3])) / _TRUNC_STD
         sd[f"{name}.weight"] = (flat[at:at + n] * std).view(shape)
         sd[f"{name}.bias"] = biases[bat:bat + shape[0]].clone()

@@ -17,10 +17,12 @@ at the configuration's ``rehearsal`` sizes with every HR size divided by
 8, on the kernels' plain versions: a check of the harness, whose
 numbers are the CPU's and carry no device metric.
 
-A cell is found by name: its configuration's ``file``, the mix
-``mixes/<traffic>.json`` (whose ``runner`` names ``runners/<runner>.py``),
-the limits ``checks/<cell>.json`` and each per-layer metric's reader
-``metrics/<family>.py``, the family being the name up to its first dot.
+A cell is found by name: its configuration's ``file`` (whose ``family``
+names the model's code: ``reference/families/<family>.py`` and
+``programs/<family>.py``), the mix ``mixes/<traffic>.json`` (whose
+``runner`` names ``runners/<runner>.py``), the limits
+``checks/<cell>.json`` and each per-layer metric's reader
+``metrics/<name>.py``, the name being the metric's up to its first dot.
 """
 
 from __future__ import annotations
@@ -89,8 +91,8 @@ def card_line(device) -> str:
 def per_layer(bench: dict, cell: str, ctx) -> dict:
     out = {}
     for m in metrics_of(bench, cell, "per_layer"):
-        family, _, suffix = m["name"].partition(".")
-        reader = importlib.import_module(f"port_bench.metrics.{family}")
+        stem, _, suffix = m["name"].partition(".")
+        reader = importlib.import_module(f"port_bench.metrics.{stem}")
         value = reader.read(ctx, suffix)
         if value is not None:
             out[m["name"]] = {"value": value, "unit": m["unit"]}

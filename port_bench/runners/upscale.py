@@ -2,18 +2,21 @@
 engine, ``BatchTiledUpscaler.upscale_many(images, batch)``, results back
 in host memory, as ``python -m pesr_torch.test`` runs it.
 
-Set-up: the weights on the device from the seed
-(``reference/weights.py``), the mix's images rendered and brought to
-host memory, the program's apply (``path`` "bf16": ``KernelApply`` with
-the folded upsampler, the CLI default; "int8": ``int8_inference``
-calibrated on the mix's crops), one request of every size class.
-Window: closed loop, one client, requests back to back for
-``seconds``, each timed from handing its host images to the engine to
-its uint8 results in host memory; the window runs from its first
-request's start to its last request's end.  Then the peak memory is
-read, the program freed, and a seeded sample of the window's results
-(one of the largest class among them) compared with the plain
-reference on the same images at the engine's grid.
+What belongs to the model comes from its configuration's family: the
+weights, the plain reference and the operation counts from
+``reference/families/<family>.py``, the port's apply for the mix's
+``path`` and the launch counters from ``programs/<family>.py``.
+
+Set-up: the weights on the device from the seed, the mix's images
+rendered and brought to host memory, the program's apply in the engine
+(the mix's ``tile``: "auto", an int, or ``[th, tw]``), one request of
+every size class.  Window: closed loop, one client, requests back to
+back for ``seconds``, each timed from handing its host images to the
+engine to its uint8 results in host memory; the window runs from its
+first request's start to its last request's end.  Then the peak memory
+is read, the program freed, and a seeded sample of the window's results
+(one of the largest class among them) compared with the plain reference
+on the same images at the engine's grid.
 """
 
 from __future__ import annotations
@@ -29,10 +32,10 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from port_bench import programs
 from port_bench.metrics._common import Request
-from port_bench.reference import edsr, tiling, w8a8
+from port_bench.reference import families, tiling
 from port_bench.reference.compare import Tally
-from port_bench.reference.weights import make_state_dict
 from port_bench.trace import WINDOW, Trace
 
 
@@ -71,29 +74,28 @@ class Sample:
         return [x[:3] for x in out]
 
 
+def tile_size(tile):
+    """A mix's ``tile`` as the engine takes it: "auto", an int, or a
+    two-item list ``[th, tw]`` as a tuple."""
+    if isinstance(tile, list):
+        if len(tile) != 2:
+            raise ValueError(f"a tile list is [th, tw], got {tile!r}")
+        return tuple(tile)
+    return tile
+
+
 class Program:
-    """The system under test, built from the benchmark's weights."""
+    """The system under test: the family's apply of the benchmark's
+    weights in the port's batch engine."""
 
     def __init__(self, model: dict, mix: dict, sd, crops, device,
                  path: Optional[str] = None) -> None:
-        from pesr_torch.models.generator import Generator
-        from pesr_torch.models.kernel_apply import KernelApply
-        from pesr_torch.models.quant_apply import int8_inference
         from pesr_torch.ops.tiling import BatchTiledUpscaler
-        path = path or mix["path"]
-        g = Generator(model["scale"], model["num_blocks"],
-                      model["num_channels"], model["res_scale"],
-                      model["img_channels"], device=device, seed=None)
-        g.load_state_dict(sd)
-        if path == "int8":
-            apply_fn = int8_inference(g, [crops])
-        elif path == "bf16":
-            apply_fn = KernelApply(g, fold=True)
-        else:
-            raise ValueError(f"unknown path {path!r}")
+        apply_fn = programs.load(model).apply(model, mix, sd, crops, device,
+                                              path or mix["path"])
         self.engine = BatchTiledUpscaler(apply_fn, model["scale"],
-                                         mix["tile"], mix["overlap"],
-                                         device=device)
+                                         tile_size(mix["tile"]),
+                                         mix["overlap"], device=device)
         self.batch, self.overlap = mix["batch"], mix["overlap"]
         self.min_halo = self.engine.min_halo
         self._grids: dict = {}
@@ -111,12 +113,6 @@ class Program:
 
     def halos(self, grid) -> tuple:
         return tiling.halos(grid, self.overlap, self.min_halo)
-
-
-def launches() -> dict:
-    from pesr_torch.ops import kernels
-    return {**kernels.launch_counts(),
-            "fused_resblock_int8": kernels.fused_resblock_int8.launches}
 
 
 def sync(device) -> None:
@@ -153,21 +149,6 @@ def run_window(program: Callable, traffic, seconds: float, sample: Sample,
     return reqs
 
 
-def reference_fn(model: dict, mix: dict, sd, crops, device,
-                 bits: Optional[int] = None):
-    """The plain forward for ``mix``'s path: float32 EDSR for "bf16", the
-    W8A8 forward for "int8" (``bits``: 4 for the control)."""
-    if mix["path"] == "int8" or bits:
-        q = w8a8.W8A8(sd, model, torch.from_numpy(crops).to(device),
-                      bits or 8)
-        return q
-
-    def f32(x):
-        with edsr.no_tf32():
-            return edsr.forward(x, sd, model)
-    return f32
-
-
 def compare(items, reqs: List[Request], model: dict, mix: dict,
             min_halo: int, forward, device) -> Tally:
     """The sampled results against ``forward`` at each one's grid."""
@@ -192,7 +173,8 @@ def run(cell: dict, model: dict, mix: dict, check: dict, args, device,
         sync(device)
         marks.append((name, time.perf_counter() - t_start))
 
-    sd = make_state_dict(model, args.seed, device)
+    family, program_family = families.load(model), programs.load(model)
+    sd = family.make_state_dict(model, args.seed, device)
     mark("weights")
     traffic = Traffic(mix, model["scale"], args.seed, device, shrink)
     mark("traffic")
@@ -206,7 +188,7 @@ def run(cell: dict, model: dict, mix: dict, check: dict, args, device,
         f"{n} {t:.2f}" for n, t in marks), file=sys.stderr)
     largest = int(np.argmax([h * w for h, w in traffic.classes]))
     sample = Sample(int(check["sample"]), largest, args.seed)
-    before = launches()
+    before = program_family.launches()
     prof = None
     if args.trace:
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -221,7 +203,7 @@ def run(cell: dict, model: dict, mix: dict, check: dict, args, device,
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)
-    after = launches()
+    after = program_family.launches()
     window_s = reqs[-1].end
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
@@ -241,7 +223,7 @@ def run(cell: dict, model: dict, mix: dict, check: dict, args, device,
     if device.type == "cuda":
         torch.cuda.empty_cache()
 
-    forward = reference_fn(model, mix, sd, traffic.crops, device)
+    forward = family.reference(model, mix, sd, traffic.crops, device)
     tally = compare(sample.items(), reqs, model, mix, min_halo, forward,
                     device)
     lat_ms = [1e3 * (r.end - r.start) for r in reqs]

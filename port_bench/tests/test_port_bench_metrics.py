@@ -1,14 +1,18 @@
 """The per-layer readers on a made-up trace."""
 
+import json
+
 import pytest
 
 from port_bench.metrics import (fused_resblock_int8_roofline, idle_pct,
                                 memcpy_ms, mfu, tiled_px_ratio)
 from port_bench.metrics._common import Context, Request
 from port_bench.reference import counts
+from port_bench.tests.helpers import ROOT
 from port_bench.trace import Trace
 
-MODEL = dict(scale=4, num_blocks=2, num_channels=256, img_channels=3)
+MODEL = dict(family="edsr", scale=4, num_blocks=2, num_channels=256,
+             img_channels=3)
 
 
 def _events(kernel_us=100.0, n_kernels=4):
@@ -69,3 +73,24 @@ def test_tiled_px_ratio_and_mfu():
     px = 3 * 2 * 100
     assert mfu.read(ctx, "mps") == pytest.approx(
         100.0 * counts.model_seconds(MODEL, "int8", px) / 0.001)
+
+
+@pytest.mark.parametrize("config", ["pesr_x4", "edsr_x2"])
+@pytest.mark.parametrize("path", ["bf16", "int8"])
+def test_mfu_of_edsr_is_its_folded_count(config, path):
+    """EDSR's count written out, bit for bit: per LR pixel 2 9 C^2 x 2
+    operations a residual block and 2 9 C^2 the tail conv (int8 on the
+    int8 path), 2 9 3 C the head conv and 2 25 C 3 s^2 the folded
+    upsampler (a 5 x 5 support at every scale) in bf16."""
+    model = json.loads((ROOT / f"port_bench/configs/{config}.json")
+                       .read_text())
+    c, s, n = model["num_channels"], model["scale"], model["num_blocks"]
+    trunk = 2 * n * 2 * 9 * c * c + 2 * 9 * c * c
+    edge = 2 * 9 * 3 * c + 2 * 25 * c * 3 * s * s
+    low, bf16 = (trunk, edge) if path == "int8" else (0, trunk + edge)
+    for px, window in ((1, 0.25), (171_360, 1.0), (8 * 510 * 336 * 37, 51.2)):
+        reqs = [Request((px, 1), 1, (1, 1, px, 1), (0, 0), 0.0, window)]
+        ctx = Context(model, {"path": path}, reqs, window, {},
+                      Trace(_events()))
+        assert mfu.read(ctx, "mps") == (
+            100.0 * (px * (low / 1979e12 + bf16 / 989e12)) / window)

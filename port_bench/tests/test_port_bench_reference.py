@@ -11,7 +11,8 @@ from pesr_torch.models.kernel_apply import Float32Apply
 from pesr_torch.models.quant_apply import collect_calibration, int8_inference
 from pesr_torch.ops.kernels.resblock import resblock_work
 from pesr_torch.ops.tiling import BatchTiledUpscaler
-from port_bench.reference import counts, edsr, tiling, w8a8, weights
+from port_bench.reference import counts, edsr, tiling, w8a8
+from port_bench.reference.families import edsr as edsr_family
 from port_bench.traffic.render import render
 
 MODEL = dict(scale=4, num_blocks=2, num_channels=64, res_scale=0.1,
@@ -20,7 +21,7 @@ MODEL = dict(scale=4, num_blocks=2, num_channels=64, res_scale=0.1,
 
 def _setup(scale=4, seed=3):
     model = {**MODEL, "scale": scale}
-    sd = weights.make_state_dict(model, seed, torch.device("cpu"))
+    sd = edsr_family.make_state_dict(model, seed, torch.device("cpu"))
     g = Generator(scale, 2, 64, 0.1, device="cpu", seed=None)
     g.load_state_dict(sd)
     gen = torch.Generator().manual_seed(seed)
@@ -89,7 +90,7 @@ def test_w8a8_is_the_int8_path():
 @pytest.mark.parametrize("scale", [2, 3, 4, 8])
 def test_fold_support_is_the_folds(scale):
     model = {**MODEL, "scale": scale}
-    sd = weights.make_state_dict(model, 1, torch.device("cpu"))
+    sd = edsr_family.make_state_dict(model, 1, torch.device("cpu"))
     kernel, _, _ = fold_upsampler(sd, scale)
     assert counts.fold_support(scale) >= kernel.shape[-1]
 
@@ -102,7 +103,7 @@ def test_resblock_ops_are_the_useful_macs():
 
 def test_flagship_ops_per_lr_pixel():
     model = dict(scale=4, num_blocks=32, num_channels=256, img_channels=3)
-    low, bf16 = counts.model_ops_per_lr_px(model, "bf16")
+    low, bf16 = edsr_family.ops_per_lr_px(model, "bf16")
     assert low == 0 and abs(bf16 / 1e6 - 77.3) < 0.1
-    low, edge = counts.model_ops_per_lr_px(model, "int8")
+    low, edge = edsr_family.ops_per_lr_px(model, "int8")
     assert low + edge == bf16

@@ -191,6 +191,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               ``BENCH_MESH=2`` as two gloo ranks on the card (one line,
               from rank 0, with the mesh keys).  The kernels line gains
               each kernel's sweep launches and errors.
+14. rcan     -- RCAN x4's kernels (``fused_rcab``, ``rcab_excite``, C =
+              64) at the batch engine's tile batch [8, 144, 342] (four
+              of them make a request of 8 DIV2K-sized LR photos): the
+              block without and with a pending block before it, and the
+              excite, each against its plain version (``x`` and the
+              excite within one bf16 ulp of ``h + s r``, ``r`` within
+              ATOL / RTOL of f32 math on the same operands, the pooled
+              sums within 1e-4); their times beside the bound and the
+              block in library calls; then ``RCANKernelApply`` at 10 x 20
+              x 64 on one tile batch (branch ends scaled by
+              ``RCAN_BRANCH_GAIN``): 200 ``fused_rcab`` and 10
+              ``rcab_excite`` launches, its output against the plain f32
+              ``RCAN`` inside the fold's border, and its time.  The
+              kernels line gains both kernels.
 
 Prints a ``{"kernels": [...]}`` JSON line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or pesr_tpu.
@@ -260,6 +274,19 @@ TRAIN_RAGGED = ((2, 19, 23), (3, 5, 70)) + TRAIN_NARROW
 # H100: up to 1.5e-2, f ~ 2e-4).  3e-2 is 2x that; a wrong tap,
 # transpose or mask gives O(1).
 GRAD_REL_TOL = 3e-2
+# RCAN x4 (rcan phase): the batch engine's tile batch for 8 LR photos of
+# 510 x 336 (4 positions of [8, 144, 342]), 10 groups x 20 RCAB x 64
+# channels.  Its weights are the port's init with the last conv of every
+# residual branch scaled by 0.3: unscaled, 200 blocks with no residual
+# scaling saturate every output subpixel.  The apply (bf16) against the
+# plain f32 RCAN inside the fold's border, in LSB of the 0..255 scale:
+# rms and max within the benchmark cell's limits against its reference
+# (1.1 and 11; the sound kernel reads ~0.4 and ~3, channel attention
+# removed ~19 rms).
+RCAN_TILE = (8, 144, 342)
+RCAN_GROUPS, RCAN_BLOCKS, RCAN_CHANNELS = 10, 20, 64
+RCAN_BRANCH_GAIN = 0.3
+RCAN_RMS_LSB, RCAN_MAX_LSB = 1.1, 11.0
 # One flagship pretrain step, kernel path (bf16) vs plain Generator (f32),
 # same weights and batch.  The outputs differ by bf16 noise of ~0.3 LSB
 # (0.0024 in [-1, 1] units, main phase), but the noise is nearly
@@ -280,6 +307,16 @@ PLANTED_FAULTS = ("res_scale applied twice", "x2 stages' weights swapped",
 def fail(msg: str) -> None:
     print(f"chip_smoke FAILED: {msg}", file=sys.stderr, flush=True)
     raise SystemExit(1)
+
+
+def edsr_launch_counts() -> dict:
+    """The launch counters of the EDSR generator's bf16 kernels
+    (``kernels.launch_counts()`` without RCAN's, which only the rcan
+    phase runs)."""
+    from pesr_torch.ops import kernels
+    counts = kernels.launch_counts()
+    return {k: counts[k]
+            for k in ("fused_resblock", "fused_upsampler_stage")}
 
 
 def gpu_name_power() -> str:
@@ -827,7 +864,7 @@ def phase_main(card: str) -> dict:
     from pesr_torch.utils.image_io import imwrite_uint8
 
     def check_counts(what: str, forwards: int) -> dict:
-        counts = kernels.launch_counts()
+        counts = edsr_launch_counts()
         want = {"fused_resblock": BLOCKS * forwards,
                 "fused_upsampler_stage": 2 * forwards}
         print(f"  {what}: {forwards} generator forwards, launches {counts} "
@@ -1123,7 +1160,7 @@ def phase_train(card: str, workdir: str) -> dict:
         host_ms.append(1e3 * (time.perf_counter() - t0))
         torch.cuda.synchronize()
         wall_ms.append(1e3 * (time.perf_counter() - t0))
-    counts = kernels.launch_counts()
+    counts = edsr_launch_counts()
     if counts != {"fused_resblock": 5 * BLOCKS, "fused_upsampler_stage": 10}:
         fail(f"launches in 5 pretrain steps: {counts}")
     per_step = {k: v // 5 for k, v in counts.items()}
@@ -1166,7 +1203,7 @@ def phase_train(card: str, workdir: str) -> dict:
     t0 = time.perf_counter()
     summary = run_training(topts)
     run_s = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    counts = edsr_launch_counts()
     fwd = summary["train_forwards"] + summary["eval_forwards"]
     want = {"fused_resblock": BLOCKS * fwd,
             "fused_upsampler_stage": 2 * fwd}
@@ -1265,7 +1302,7 @@ def _tiled_eval(card: str, opts, best: str) -> dict:
     t0 = time.perf_counter()
     srs = tiler.upscale_many(lrs)          # ends with the cores' D2H copy
     sr_s = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    counts = edsr_launch_counts()
     fwd = apply_fn.forwards
     tiles = sum(-(-h // opts.tile_size) * -(-w // opts.tile_size)
                 for h, w in (lr.shape[:2] for lr in lrs))
@@ -1618,7 +1655,7 @@ def phase_gan(card: str, pretrained: str, workdir: str) -> dict:
         host_ms.append(1e3 * (time.perf_counter() - t0))
         torch.cuda.synchronize()
         wall_ms.append(1e3 * (time.perf_counter() - t0))
-    counts = kernels.launch_counts()
+    counts = edsr_launch_counts()
     if counts != {"fused_resblock": 5 * BLOCKS, "fused_upsampler_stage": 10}:
         fail(f"launches in 5 GAN steps: {counts} (one generator forward "
              f"per step gives {5 * BLOCKS} and 10)")
@@ -1650,7 +1687,7 @@ def phase_gan(card: str, pretrained: str, workdir: str) -> dict:
     t0 = time.perf_counter()
     summary = run_training(topts)
     run_s = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    counts = edsr_launch_counts()
     fwd = summary["train_forwards"] + summary["eval_forwards"]
     want = {"fused_resblock": BLOCKS * fwd, "fused_upsampler_stage": 2 * fwd}
     print(f"  run_training: {summary['train_forwards']} training + "
@@ -1885,7 +1922,7 @@ def _folded_inference(card: str, gen, lrs, main_mps: float) -> dict:
     from pesr_torch.scales import fold_min_halo
 
     def check_counts(what, forwards):
-        counts = kernels.launch_counts()
+        counts = edsr_launch_counts()
         want = {"fused_resblock": BLOCKS * forwards,
                 "fused_upsampler_stage": 0}
         print(f"  {what}: {forwards} generator forwards, launches {counts} "
@@ -2074,7 +2111,7 @@ def _fold_train_step(card: str) -> dict:
     kernels.reset_launch_counts()
     for _ in range(5):
         step(state, *batch)
-    counts = kernels.launch_counts()
+    counts = edsr_launch_counts()
     if counts != {"fused_resblock": 5 * BLOCKS, "fused_upsampler_stage": 0}:
         fail(f"launches in 5 fold-train steps: {counts}")
     print(f"  launches in 5 fold-train steps: {counts}", flush=True)
@@ -2141,7 +2178,7 @@ def _fold_run_training(card: str, workdir: str, train_sps: float) -> dict:
           f"synthetic images each epoch", flush=True)
     kernels.reset_launch_counts()
     summary = run_training(opts)
-    counts = kernels.launch_counts()
+    counts = edsr_launch_counts()
     fwd = summary["train_forwards"] + summary["eval_forwards"]
     want = {"fused_resblock": BLOCKS * fwd, "fused_upsampler_stage": 0}
     print(f"  run_training: {summary['train_forwards']} training + "
@@ -2198,7 +2235,7 @@ def _fold_gan_step(card: str) -> dict:
     kernels.reset_launch_counts()
     for _ in range(2):
         step(state, *batch)
-    counts = kernels.launch_counts()
+    counts = edsr_launch_counts()
     if counts != {"fused_resblock": 2 * BLOCKS, "fused_upsampler_stage": 0}:
         fail(f"launches in 2 fold-train GAN steps: {counts}")
     print(f"  launches in 2 fold-train GAN steps: {counts}", flush=True)
@@ -2358,7 +2395,7 @@ def phase_qat(card: str, workdir: str) -> dict:
     ref = _qat_step(opts32, sd, batch)[:2]
     kernels.reset_launch_counts()
     ours = _qat_step(opts, sd, batch)
-    step_counts = kernels.launch_counts()
+    step_counts = edsr_launch_counts()
     dl1, cos, name = _qat_agreement(ours, ref)
     print(f"  L1 {ref[0]:.6f} (f32): bf16 |d L1| {dl1:.3e}; least gradient "
           f"cosine {cos:.6f} ({name}); kernel launches {step_counts}",
@@ -2412,7 +2449,7 @@ def phase_qat(card: str, workdir: str) -> dict:
           f"epoch", flush=True)
     kernels.reset_launch_counts()
     summary = run_training(topts)
-    counts = kernels.launch_counts()
+    counts = edsr_launch_counts()
     print(f"  run_training: {summary['train_forwards']} training + "
           f"{summary['eval_forwards']} eval forwards, kernel launches "
           f"{counts} (the QAT path runs none)", flush=True)
@@ -2930,7 +2967,7 @@ def phase_quant(card: str, best: str, workdir: str) -> dict:
                 pngs = len(os.listdir(summary["out_dir"]))
         finally:
             cli.load_eval_set = real
-        counts = {**kernels.launch_counts(),
+        counts = {**edsr_launch_counts(),
                   "fused_resblock_int8": kernels.fused_resblock_int8.launches}
         print(f"  pesr_torch.test {' '.join(extra)}: {summary['precision']}, "
               f"{summary['forwards']} forwards, launches {counts}, "
@@ -2964,7 +3001,7 @@ def phase_quant(card: str, best: str, workdir: str) -> dict:
     srs = {"int8": engines["int8"].upscale_many(lrs, N_IMAGES)}
     fwd, gemms = int8.forwards - fwd, int8_conv_im2col.gemms - gemms
     res["int8_launches"] = {k: v // max(fwd, 1) for k, v in
-                            kernels.launch_counts().items()}
+                            edsr_launch_counts().items()}
     res["int8_block_launches"] = kernels.fused_resblock_int8.launches
     res["int8_forwards"] = fwd
     print(f"  int8 engine: {fwd} forwards, bf16 kernel launches per forward "
@@ -2972,9 +3009,9 @@ def phase_quant(card: str, best: str, workdir: str) -> dict:
           f"launches {res['int8_block_launches']} (expected {BLOCKS} per "
           f"forward), _int_mm GEMMs per forward {gemms / max(fwd, 1):.0f} "
           f"(expected 1: the tail)", flush=True)
-    if (any(kernels.launch_counts().values()) or fwd < 1
+    if (any(edsr_launch_counts().values()) or fwd < 1
             or res["int8_block_launches"] != BLOCKS * fwd or gemms != fwd):
-        fail(f"the int8 engine launched {kernels.launch_counts()}, "
+        fail(f"the int8 engine launched {edsr_launch_counts()}, "
              f"{res['int8_block_launches']} int8 blocks and {gemms} GEMMs "
              f"in {fwd} forwards")
     srs["bf16"] = engines["bf16"].upscale_many(lrs, N_IMAGES)
@@ -3240,7 +3277,7 @@ def _synthetic_device_run(card: str, workdir: str) -> dict:
         summary, out = _run_logged(lambda: loop.run_training(opts))
     finally:
         loop.trim_host_heap = real_trim
-    counts = kernels.launch_counts()
+    counts = edsr_launch_counts()
     fwd = summary["train_forwards"] + summary["eval_forwards"]
     want = {"fused_resblock": BLOCKS * fwd, "fused_upsampler_stage": 0}
     res = {"launches": counts,
@@ -3322,7 +3359,7 @@ def _precision_steps(card: str) -> dict:
     kernels.reset_launch_counts()
     m32 = step32(s32, *batch)
     torch.cuda.synchronize()
-    res["f32_launches"] = kernels.launch_counts()
+    res["f32_launches"] = edsr_launch_counts()
     sk = state_of(opts)
     mk = make_pretrain_step(opts)(sk, *batch)
     dl1 = abs(float(m32["l1"]) - float(mk["l1"]))
@@ -3370,7 +3407,7 @@ def _precision_steps(card: str) -> dict:
     kernels.reset_launch_counts()
     l1_b = [float(step(s_b, *batch)["l1"]) for _ in range(2)]
     res["bf16_param_launches_per_step"] = {
-        k: v // 2 for k, v in kernels.launch_counts().items()}
+        k: v // 2 for k, v in edsr_launch_counts().items()}
     tensors = [("param " + n, p) for n, p in s_b.generator.named_parameters()]
     for p in s_b.generator.parameters():
         st = s_b.optimizer.state[p]
@@ -3391,7 +3428,7 @@ def _precision_steps(card: str) -> dict:
         fail("--param_dtype bfloat16: first-step L1 or dtypes")
     if res["bf16_param_launches_per_step"] != {"fused_resblock": BLOCKS,
                                                "fused_upsampler_stage": 0}:
-        fail(f"bf16 parameters: launches {kernels.launch_counts()}")
+        fail(f"bf16 parameters: launches {edsr_launch_counts()}")
     return res
 
 
@@ -3646,7 +3683,7 @@ def _par_case(case: str, mesh, fault=False, starts=None, seed=0,
         lr_img, hr_img = _train_batch(seed=100 * seed + k)
         kernels.reset_launch_counts()
         m = step(state, lr_img[block], hr_img[block])
-        out["launches"].append(kernels.launch_counts())
+        out["launches"].append(edsr_launch_counts())
         out["metrics"].append({n: float(v) for n, v in m.items()})
         out["grads"].append({
             t: {n: p.grad.detach().float().clone()
@@ -3832,7 +3869,7 @@ def rank_infer(workdir: str) -> None:
         ap.forwards = 0
         with resblock_shapes() as shapes:
             got = eng.upscale_batch(batch)
-        launches, forwards = kernels.launch_counts(), ap.forwards
+        launches, forwards = edsr_launch_counts(), ap.forwards
         held = hold_resblock_at(shapes, seed=60 + 10 * mesh.rank)
         ref = single.upscale_batch(batch)
         own = None
@@ -3995,7 +4032,7 @@ def serve_check(path: str, imgs_path: str, out_path: str) -> None:
     mods = sorted(m for m in sys.modules if m.startswith("pesr_torch."))
     np.save(out_path, out)
     with open(out_path + ".json", "w") as fh:
-        json.dump({"launches": kernels.launch_counts(), "modules": mods}, fh)
+        json.dump({"launches": edsr_launch_counts(), "modules": mods}, fh)
 
 
 def phase_serve(card: str, workdir: str) -> dict:
@@ -4092,7 +4129,7 @@ def phase_serve(card: str, workdir: str) -> dict:
     served8(batch)                             # first call: warm up
     kernels.reset_launch_counts()
     got8 = served8(batch)
-    launches8 = {**kernels.launch_counts(),
+    launches8 = {**edsr_launch_counts(),
                  "fused_resblock_int8": kernels.fused_resblock_int8.launches}
     fwd8 = meta8["grid"]["nh"] * meta8["grid"]["nw"]
     want8 = {"fused_resblock": 0, "fused_upsampler_stage": 0,
@@ -4297,6 +4334,180 @@ def bench_keys(bench_res: dict, name: str) -> dict:
             "bench_max_abs_err": max(bench_res["held"][name])}
 
 
+def check_rcab(card: str) -> dict:
+    """``fused_rcab`` (first block of a group, and with the block before
+    pending) and ``rcab_excite`` at the tile batch ``RCAN_TILE``, C = 64,
+    against their plain versions; their times."""
+    import torch
+    import torch.nn.functional as F
+    from pesr_torch.ops.kernels import rcab as K
+    from pesr_torch.ops.kernels.resblock import (pack_resblock,
+                                                 unpack_resblock)
+    b, h, w = RCAN_TILE
+    c = RCAN_CHANNELS
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(64)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    # conv kernels at variance 1 / fan_in; a squeeze whose s spreads over
+    # (0, 1) (not ~0.5 everywhere), on partial sums of an O(1) branch
+    c1w, c2w = rnd(c, c, 3, 3, scale=1 / 24), rnd(c, c, 3, 3, scale=1 / 24)
+    c1b, c2b = rnd(c, scale=0.1), rnd(c, scale=0.1)
+    convs = pack_resblock(c1w, c1b, c2w, c2b)
+    sq = K.pack_squeeze(rnd(c // 16, c, 1, 1, scale=0.3),
+                        rnd(c // 16, scale=0.1),
+                        rnd(c, c // 16, 1, 1, scale=0.5), rnd(c, scale=0.1))
+    hh, rr = rnd(b, h, w, c).bfloat16(), rnd(b, h, w, c).bfloat16()
+    sched = K.rcab_schedule(b, h, w, K._max_clusters(dev))
+    parts = sched.strips * sched.segs
+    pool = rnd(b, parts, c, scale=h * w / parts)
+    s = K.squeeze_excite(pool, h * w, *sq)[:, None, None]
+    # one bf16 ulp of h + s r (s is summed in another order)
+    ulp = (hh.float().abs() + (s * rr.float()).abs()) * 2.0 ** -7
+    res = {"shape": [b, h, w, c], "schedule": list(sched)}
+    print(f"[rcan] fused_rcab at [{b},{h},{w},{c}], schedule {sched}",
+          flush=True)
+    for pending in (False, True):
+        what = "pending block" if pending else "first block"
+        x, rn, pn = K.fused_rcab(hh, rr if pending else None,
+                                 pool if pending else None, *sq, *convs)
+        torch.cuda.synchronize()
+        want_x = K.excite_reference(hh, rr, pool, *sq) if pending else hh
+        dx = (x.float() - want_x.float()).abs()
+        print(f"  fused_rcab ({what}) x: max|d| {float(dx.max()):.4g}, "
+              f"within one bf16 ulp of h + s r: "
+              f"{bool((dx <= ulp).all())}", flush=True)
+        if not (dx <= ulp).all():
+            fail(f"fused_rcab ({what}): x is not h + s r")
+        t = torch.relu(F.conv2d(x.float().permute(0, 3, 1, 2),
+                                c1w.bfloat16().float(), convs[1],
+                                padding=1))
+        want = F.conv2d(t.bfloat16().float(), c2w.bfloat16().float(),
+                        convs[3], padding=1).permute(0, 2, 3, 1)
+        res[f"r_{'pending' if pending else 'first'}"] = compare(
+            f"fused_rcab ({what}) r", rn, want)
+        total = want.sum((1, 2))
+        dp = float((pn.sum(1) - total).abs().max() / total.abs().max())
+        print(f"  fused_rcab ({what}) pooled sums: max|d| / max|sum| "
+              f"{dp:.3g} (pass <= 1e-4)", flush=True)
+        if not dp <= 1e-4:
+            fail(f"fused_rcab ({what}): pooled sums disagree")
+    e = K.rcab_excite(hh, rr, pool, *sq)
+    de = (e.float() - K.excite_reference(hh, rr, pool, *sq).float()).abs()
+    print(f"  rcab_excite: max|d| {float(de.max()):.4g}, within one bf16 "
+          f"ulp: {bool((de <= ulp).all())}", flush=True)
+    if not (de <= ulp).all():
+        fail("rcab_excite is not h + s r")
+    res["max_abs_err"] = res["r_pending"]["max_abs_err"]
+    res["excite_max_abs_err"] = float(de.max())
+
+    # library yardstick: the same block in cuDNN bf16 convs (channels
+    # last) and torch's excite and pool
+    w1l, w2l = (t.bfloat16().contiguous(memory_format=torch.channels_last)
+                for t in (c1w, c2w))
+    b1h, b2h = c1b.bfloat16(), c2b.bfloat16()
+
+    def library():
+        xl = (hh.float() + s * rr.float()).bfloat16().permute(0, 3, 1, 2)
+        y = F.conv2d(F.relu(F.conv2d(xl, w1l, b1h, padding=1)), w2l, b2h,
+                     padding=1)
+        return y, y.float().sum((2, 3))
+
+    hf, rf = hh.float(), rr.float()
+    plain_convs = [t.float() for t in unpack_resblock(*convs)]
+    res["time"] = timed_ms(lambda: K.fused_rcab(hh, rr, pool, *sq, *convs),
+                           10)
+    res["first"] = timed_ms(lambda: K.fused_rcab(hh, None, None, *sq,
+                                                 *convs), 10)
+    res["excite"] = timed_ms(lambda: K.rcab_excite(hh, rr, pool, *sq), 10)
+    res["plain"] = timed_ms(lambda: K.rcab_reference(
+        hf, rf, pool, *sq, *plain_convs), 1, 5, 1)
+    res["library"] = timed_ms(library, 10, 5)
+    for k in ("time", "first", "excite", "plain", "library"):
+        res[f"{k}_ms" if k != "time" else "ms"] = res[k]["ms"]
+    px = b * h * w
+    # fused_resblock's yardstick at C = 64: two convs at the bf16 peak, or
+    # the carry read and written once and the weights once
+    res["bound_ms"], res["bound_by"] = bound(
+        4 * 9 * c * c * px, 2 * px * c * 2 + 2 * 9 * c * c * 2 + 2 * c * 4)
+    print_time("fused_rcab (pending block)", res, card,
+               "'plain' the f32 plain version, 'library' cuDNN bf16 convs "
+               "and torch's pool and excite")
+    print(f"  fused_rcab (first block) {res['first_ms']:.4f} ms, "
+          f"rcab_excite {res['excite_ms']:.4f} ms  [{card}]", flush=True)
+    return res
+
+
+def rcan_model(seed: int):
+    """RCAN x4 at ``RCAN_GROUPS`` x ``RCAN_BLOCKS`` x ``RCAN_CHANNELS`` on
+    the card, the port's init from ``seed``, the last conv of every
+    residual branch scaled by ``RCAN_BRANCH_GAIN``."""
+    import torch
+    from pesr_torch.models.rcan import RCAN
+    net = RCAN(4, RCAN_GROUPS, RCAN_BLOCKS, RCAN_CHANNELS, device="cuda",
+               seed=seed)
+    ends = [blk.body[2] for grp in net.body[:-1] for blk in grp.body[:-1]]
+    ends += [grp.body[-1] for grp in net.body[:-1]] + [net.body[-1]]
+    with torch.no_grad():
+        for m in ends:
+            m.weight.mul_(RCAN_BRANCH_GAIN)
+            m.bias.mul_(RCAN_BRANCH_GAIN)
+    return net
+
+
+def phase_rcan(card: str) -> dict:
+    """RCAN's kernels at the engine's tile batch, then one tile batch
+    through ``RCANKernelApply``: launches, output, time."""
+    import torch
+    from pesr_torch.models.rcan_apply import RCANKernelApply
+    from pesr_torch.ops import kernels
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"fused_rcab": check_rcab(card)}
+    b, h, w = RCAN_TILE
+    print(f"[rcan] RCANKernelApply, {RCAN_GROUPS} x {RCAN_BLOCKS} x "
+          f"{RCAN_CHANNELS}, x4, on one tile batch [{b},{h},{w}]",
+          flush=True)
+    net = rcan_model(seed=5)
+    apply_fn = RCANKernelApply(net)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.rand(b, h, w, 3, generator=g, device="cuda") * 2 - 1
+    apply_fn(x)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    y = apply_fn(x)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    got = {k: counts[k] for k in ("fused_rcab", "rcab_excite")}
+    want = {"fused_rcab": RCAN_GROUPS * RCAN_BLOCKS,
+            "rcab_excite": RCAN_GROUPS}
+    print(f"  launches per forward {got} (expected {want})", flush=True)
+    if got != want:
+        fail(f"RCANKernelApply: launch counts {got} != {want}")
+    with torch.no_grad():
+        ref = net(x)
+    k = 4 * apply_fn.min_halo  # the fold is exact inside this HR border
+    d = (127.5 * (y - ref))[:, k:-k, k:-k].abs()
+    rms, worst = float(d.pow(2).mean().sqrt()), float(d.max())
+    print(f"  apply (bf16) vs plain RCAN (f32) inside a {k} px border: rms "
+          f"{rms:.4f} LSB, max {worst:.4f} LSB, "
+          f"{100 * float((d > 1.5).float().mean()):.4f}% off by > 1.5 LSB "
+          f"(pass: rms <= {RCAN_RMS_LSB}, max <= {RCAN_MAX_LSB})",
+          flush=True)
+    if not (rms <= RCAN_RMS_LSB and worst <= RCAN_MAX_LSB):
+        fail("RCANKernelApply disagrees with the plain RCAN")
+    t = timed_ms(lambda: apply_fn(x), 1, 5, 1)
+    print(f"  apply: {t['ms']:.3f} ms per tile batch [min {t['min']:.3f}, "
+          f"max {t['max']:.3f}]  [{card}]", flush=True)
+    res.update(launches=got, apply_rms_lsb=rms, apply_max_lsb=worst,
+               apply_ms=t["ms"])
+    del apply_fn, net
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_bench(card: str) -> dict:
     """The port's headline benchmark, ``python -m pesr_torch.bench``
     (bench.py's contract): at its defaults in a subprocess (its JSON line
@@ -4390,6 +4601,7 @@ def main() -> int:
         serve_res = phase_serve(card, workdir)
         fit_res = phase_fit(workdir)
     bench_res = phase_bench(card)
+    rcan_res = phase_rcan(card)
     sources = {"fused_resblock": ("pesr_torch/csrc/resblock.cu",
                                   "pesr_tpu/ops/pallas/resblock.py:96"),
                "fused_upsampler_stage": ("pesr_torch/csrc/upsampler.cu",
@@ -4460,6 +4672,23 @@ def main() -> int:
             serve_res["int8_launches"]["fused_resblock_int8"]
             / serve_res["int8_forwards"],
         **bench_keys(bench_res, "fused_resblock_int8")})
+    rb = rcan_res["fused_rcab"]
+    line["kernels"] += [
+        {"name": "fused_rcab", "route": "cuda",
+         "source": "pesr_torch/csrc/rcab.cu", "replaces": None,
+         "launches": rcan_res["launches"]["fused_rcab"],
+         "max_abs_err": rb["max_abs_err"], "ms": rb["ms"],
+         "first_block_ms": rb["first_ms"], "plain_ms": rb["plain_ms"],
+         "bound_ms": rb["bound_ms"], "bound_by": rb["bound_by"],
+         "library_ms": rb["library_ms"], "shape": rb["shape"],
+         "apply_rms_lsb": rcan_res["apply_rms_lsb"],
+         "apply_max_lsb": rcan_res["apply_max_lsb"],
+         "apply_ms": rcan_res["apply_ms"]},
+        {"name": "rcab_excite", "route": "cuda",
+         "source": "pesr_torch/csrc/rcab.cu", "replaces": None,
+         "launches": rcan_res["launches"]["rcab_excite"],
+         "max_abs_err": rb["excite_max_abs_err"], "ms": rb["excite_ms"],
+         "shape": rb["shape"]}]
     conv = quant_res["conv"]
     print(f"int8 tail conv and x8 int8 upfold (library route, torch._int_mm;"
           f" not a kernel port): {conv['ms']:.3f} ms at the x4 tail shape, "

@@ -26,8 +26,11 @@ per device: the process group from the ``PESR_*`` contract or torchrun,
 in test mode the engine's ``--mesh_axis batch|tiles`` (each rank
 upscales its block of the batch, or its share of each image's tiles).
 Test mode also has ``--export_artifact PATH`` (the serving artifact of
-``pesr_torch/serving.py``) and its own ``--profile_dir`` (a
-torch.profiler trace of the timed pass over the eval set).  Each parser
+``pesr_torch/serving.py``), its own ``--profile_dir`` (a
+torch.profiler trace of the timed pass over the eval set) and ``--arch
+rcan`` (RCAN, ``--num_groups`` x ``--num_blocks`` x ``--num_channels``
+with ``--reduction``; unset, the last two are RCAN x4's 20 and 64, and
+EDSR's 32 and 256 without it).  Each parser
 takes the flags its CLI reads; a flag it does not take is an argparse
 error, not ignored.  So these
 flags of JAX's shared parser are not in the port's: in test mode the
@@ -56,8 +59,11 @@ class Opts:
     # model
     scale: int = 4
     num_channels: int = 256
-    num_blocks: int = 32
+    num_blocks: int = 32          # residual blocks (RCAN: per group)
     res_scale: float = 0.1
+    arch: str = "edsr"            # edsr | rcan (test mode)
+    num_groups: int = 10          # RCAN's residual groups
+    reduction: int = 16           # RCAN's channel-attention reduction
     # data
     train_dataset: str = "DIV2K"
     valid_dataset: str = "PIRM"
@@ -153,13 +159,32 @@ def _add_bool_flag(g, name: str, default: bool, help_: str) -> None:
                    help=argparse.SUPPRESS)
 
 
-def _add_model_flags(p: argparse.ArgumentParser, d: Opts) -> None:
+# --num_blocks / --num_channels when not given, by --arch: EDSR's are the
+# dataclass defaults; RCAN x4's are 20 RCAB a group at 64 channels
+ARCH_DEFAULTS = {"edsr": {"num_blocks": Opts.num_blocks,
+                          "num_channels": Opts.num_channels},
+                 "rcan": {"num_blocks": 20, "num_channels": 64}}
+
+
+def _add_model_flags(p: argparse.ArgumentParser, d: Opts, mode: str) -> None:
     g = p.add_argument_group("model")
     g.add_argument("--scale", type=int, default=d.scale,
                    help="super-resolution scale (any 2^a*3^b)")
-    g.add_argument("--num_channels", type=int, default=d.num_channels)
-    g.add_argument("--num_blocks", type=int, default=d.num_blocks)
+    g.add_argument("--num_channels", type=int, default=None,
+                   help=f"default: {d.num_channels} (EDSR), 64 (RCAN)")
+    g.add_argument("--num_blocks", type=int, default=None,
+                   help=f"residual blocks (RCAN: per group); default: "
+                        f"{d.num_blocks} (EDSR), 20 (RCAN)")
     g.add_argument("--res_scale", type=float, default=d.res_scale)
+    if mode == "test":
+        g.add_argument("--arch", default=d.arch, choices=sorted(ARCH_DEFAULTS),
+                       help="edsr: the EDSR-style generator; rcan: RCAN "
+                            "(Zhang et al. 2018), residual groups of "
+                            "channel-attention blocks")
+        g.add_argument("--num_groups", type=int, default=d.num_groups,
+                       help="RCAN's residual groups")
+        g.add_argument("--reduction", type=int, default=d.reduction,
+                       help="RCAN's channel-attention reduction")
 
 
 def build_parser(mode: str = "test") -> argparse.ArgumentParser:
@@ -175,7 +200,7 @@ def build_parser(mode: str = "test") -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog=f"python -m pesr_torch.{mode}", description=desc,
         formatter_class=argparse.ArgumentDefaultsHelpFormatter)
-    _add_model_flags(p, d)
+    _add_model_flags(p, d, mode)
     g = p.add_argument_group("data")
     if mode == "test":
         g.add_argument("--dataset", "--test_dataset", dest="test_dataset",
@@ -354,6 +379,9 @@ def build_parser(mode: str = "test") -> argparse.ArgumentParser:
 def opts_from_args(argv: Optional[Sequence[str]] = None,
                    mode: str = "test") -> Opts:
     ns = vars(build_parser(mode).parse_args(argv))
+    for key, value in ARCH_DEFAULTS[ns.get("arch", Opts.arch)].items():
+        if ns[key] is None:
+            ns[key] = value
     if "GP" in ns:
         ns["use_gp"] = ns.pop("GP")
     if ns.get("fold_train", False) is None:

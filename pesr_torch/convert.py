@@ -15,6 +15,9 @@ uses the EDSR ``Sequential`` names of
 * :func:`load_generator_pth` reads an EDSR-style ``.pth`` and maps its
   convs POSITIONALLY onto those names (any naming scheme works as long
   as the architecture matches; a mismatch raises with both lists).
+* :func:`load_rcan_pth` reads an RCAN state_dict (the official
+  ``RCAN_BIX4.pt`` naming, :func:`rcan_conv_names`) BY NAME for
+  :class:`~pesr_torch.models.rcan.RCAN`.
 * :func:`discriminator_state_dict_from_jax` / :func:`load_discriminator_pth`
   and :func:`vgg_state_dict_from_jax` / :func:`load_vgg19_pth` do the
   same for the GAN phase's networks (:mod:`pesr_torch.models.discriminator`
@@ -129,6 +132,60 @@ def load_generator_pth(path: str, num_blocks: int,
     """EDSR-style generator ``.pth`` -> the port's state_dict."""
     return state_dict_from_torch(load_torch_state_dict(path), num_blocks,
                                  scale)
+
+
+def rcan_conv_names(num_groups: int, num_blocks: int,
+                    scale: int) -> List[str]:
+    """RCAN's conv names in registration order (the official
+    checkpoints' and :class:`~pesr_torch.models.rcan.RCAN`'s), the
+    MeanShifts left out: ``head.0``; per group, per RCAB
+    ``body.{g}.body.{b}.body.{0,2}`` and ``...body.3.conv_du.{0,2}``,
+    then the group's conv ``body.{g}.body.{num_blocks}``; the trunk conv
+    ``body.{num_groups}``; ``tail.0.{2s}``; ``tail.1``."""
+    names = ["head.0"]
+    for g in range(num_groups):
+        for b in range(num_blocks):
+            p = f"body.{g}.body.{b}.body"
+            names += [f"{p}.0", f"{p}.2", f"{p}.3.conv_du.0",
+                      f"{p}.3.conv_du.2"]
+        names.append(f"body.{g}.body.{num_blocks}")
+    names.append(f"body.{num_groups}")
+    names += [f"tail.0.{2 * s}" for s in range(len(upsample_stages(scale)))]
+    return names + ["tail.1"]
+
+
+MEAN_SHIFTS = ("sub_mean", "add_mean")
+
+
+def rcan_state_dict_from_torch(state_dict: Dict[str, Any], num_groups: int,
+                               num_blocks: int, scale: int
+                               ) -> "OrderedDict[str, torch.Tensor]":
+    """An RCAN state_dict in the official names (``RCAN_BIX4.pt``; the
+    ``module.`` prefix of a ``DataParallel`` save dropped) -> the port's,
+    float32: every conv of :func:`rcan_conv_names` by name, and the
+    MeanShifts' entries where it has them.  Raises, naming them, on
+    missing or unknown entries."""
+    sd = {k[len("module."):] if k.startswith("module.") else k: v
+          for k, v in state_dict.items()}
+    names = rcan_conv_names(num_groups, num_blocks, scale)
+    want = [f"{n}.{leaf}" for n in names for leaf in ("weight", "bias")]
+    shifts = [f"{m}.{leaf}" for m in MEAN_SHIFTS for leaf in ("weight", "bias")]
+    missing = [k for k in want if k not in sd]
+    unknown = [k for k in sd if k not in want and k not in shifts]
+    if missing or unknown:
+        raise ValueError(f"not an RCAN {num_groups} x {num_blocks} x{scale} "
+                         f"state_dict: missing {missing[:8]}, unknown "
+                         f"{unknown[:8]}")
+    return OrderedDict((k, torch.as_tensor(sd[k]).detach().float())
+                       for k in shifts + want if k in sd)
+
+
+def load_rcan_pth(path: str, num_groups: int, num_blocks: int,
+                  scale: int) -> "OrderedDict[str, torch.Tensor]":
+    """An RCAN ``.pt`` / ``.pth`` (e.g. the official ``RCAN_BIX4.pt``) ->
+    the port's state_dict."""
+    return rcan_state_dict_from_torch(load_torch_state_dict(path), num_groups,
+                                      num_blocks, scale)
 
 
 def _no_orbax(path: str, what: str) -> None:

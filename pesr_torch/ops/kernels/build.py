@@ -10,6 +10,12 @@ All sources compile at once, one ``nvcc`` process each; each build's
 ``nvcc`` / ``ptxas -v`` output is kept beside its library
 (``lib<name>.log``), so a reused library still has its log.
 
+The kernels of :data:`KERNELS` (the EDSR generator's) build together;
+one of :data:`ON_DEMAND` (``rcab``, RCAN's block) builds alone, at its
+own first launch, into a directory of its own hash, so a process that
+never runs RCAN never waits for its ``nvcc`` and the others' hash does
+not cover its source.
+
 There is no fallback: without ``nvcc``, or when a build fails, this
 raises.  Importing this module does nothing; building happens on the
 first kernel launch (or an explicit :func:`build_all`).
@@ -24,12 +30,13 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 KERNELS = ("resblock", "upsampler", "resblock_int8")
+ON_DEMAND = ("rcab",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -38,9 +45,14 @@ _libs: Dict[str, ctypes.CDLL] = {}
 LOGS: Dict[str, str] = {}  # nvcc / ptxas output of each kernel's build
 
 
-def _sources_hash() -> str:
+def _sources_hash(names: Sequence[str] = KERNELS) -> str:
+    """Hash of the flags and every source but the on-demand kernels'
+    not in ``names``."""
+    skip = {f"{k}.cu" for k in ON_DEMAND if k not in names}
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.glob("*.cu*")):
+        if p.name in skip:
+            continue
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -57,16 +69,17 @@ def _nvcc() -> str:
                        "the pesr_torch CUDA kernels cannot be built")
 
 
-def build_all(verbose: bool = False) -> Dict[str, Path]:
-    """Build every kernel library that is missing for the current sources,
-    one ``nvcc`` per source, all started together.  Returns
-    ``{name: path}``.  With ``verbose``, prints what ``-Xptxas -v`` reports
+def build_all(verbose: bool = False,
+              names: Sequence[str] = KERNELS) -> Dict[str, Path]:
+    """Build every library of ``names`` (by default :data:`KERNELS`) that
+    is missing for the current sources, one ``nvcc`` per source, all
+    started together.  Returns ``{name: path}``.  With ``verbose``, prints what ``-Xptxas -v`` reports
     (registers, shared memory, spills) for each build it ran.  Fills
     :data:`LOGS` for every library, built now or reused."""
-    out = BUILD_ROOT / _sources_hash()
-    libs = {k: out / f"lib{k}.so" for k in KERNELS}
-    todo = [k for k in KERNELS if not libs[k].exists()]
-    for k in KERNELS:
+    out = BUILD_ROOT / _sources_hash(names)
+    libs = {k: out / f"lib{k}.so" for k in names}
+    todo = [k for k in names if not libs[k].exists()]
+    for k in names:
         log = out / f"lib{k}.log"
         if k not in todo and log.exists():
             LOGS[k] = log.read_text()
@@ -105,7 +118,8 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build_all()[name]))
+            names = KERNELS if name in KERNELS else (name,)
+            lib = ctypes.CDLL(str(build_all(names=names)[name]))
             _libs[name] = lib
         return lib
 

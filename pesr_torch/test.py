@@ -34,6 +34,14 @@ engine as a serving artifact (``pesr_torch/serving.py``) for the first
 image's shape at ``--infer_batch`` and exits; it refuses whole-image
 mode, the self-ensemble and a batch-DP mesh, as JAX's ``test.py`` does.
 
+``--arch rcan`` serves RCAN (Zhang et al. 2018; ``--num_groups`` x
+``--num_blocks`` RCAB x ``--num_channels``, ``--reduction``, by default
+RCAN x4's 10 x 20 x 64 and 16) through the same engines on
+``RCANKernelApply`` (one ``fused_rcab`` launch per block, the upsampler
+folded in every mode), its weights an RCAN ``.pt`` in the official names
+or random from ``--seed``; it takes none of int8, float32, ``--no_fold``,
+the serving artifact or interpolation.
+
 ``--profile_dir D`` writes ``D/<dataset>.pt.trace.json``, a
 torch.profiler Chrome trace of the timed pass over the eval set, with
 the engine's and the apply's ranges (``pesr.request``, ``pesr.forward``,
@@ -50,7 +58,8 @@ import torch
 
 from pesr_torch import parallel
 from pesr_torch.config import Opts, opts_from_args
-from pesr_torch.convert import load_generator_pth, state_dict_from_torch
+from pesr_torch.convert import (load_generator_pth, load_rcan_pth,
+                                state_dict_from_torch)
 from pesr_torch.data.datasets import host_bicubic_resize, load_eval_set
 from pesr_torch.metrics import calc_psnr, calc_ssim
 from pesr_torch.models.generator import Generator
@@ -58,6 +67,8 @@ from pesr_torch.models.kernel_apply import Float32Apply, KernelApply
 from pesr_torch.models.quant_apply import (default_calib_tiles,
                                            int8_inference,
                                            int8_inference_guarded)
+from pesr_torch.models.rcan import RCAN, count_parameters
+from pesr_torch.models.rcan_apply import RCANKernelApply
 from pesr_torch.ops.tiling import BatchTiledUpscaler, WholeImageUpscaler
 from pesr_torch.training.checkpoint import (interpolate_params,
                                              restore_generator_params)
@@ -94,6 +105,41 @@ def _load_state_dict(path: str, opts: Opts) -> dict:
     return state_dict_from_torch(sd, opts.num_blocks, opts.scale)
 
 
+# what --arch rcan does not take: RCAN has no int8 path, no float32
+# apply, no upsampler chain, no serving artifact and no interpolation here
+RCAN_REFUSED = (("quant", "none", "--quant int8"),
+                ("compute_dtype", "bfloat16", "--compute_dtype float32"),
+                ("fold", True, "--no_fold"),
+                ("export_artifact", "", "--export_artifact"),
+                ("interp_model", "", "--interp_model"))
+
+
+def build_rcan(opts: Opts, device: torch.device) -> RCAN:
+    """RCAN of ``opts`` (``--num_groups`` x ``--num_blocks`` x
+    ``--num_channels``, ``--reduction``), with weights from
+    ``--model_path`` (an RCAN ``.pt`` / ``.pth`` in the official names)
+    or random init from ``--seed``."""
+    for key, default, flag in RCAN_REFUSED:
+        if getattr(opts, key) != default:
+            raise SystemExit(f"--arch rcan does not take {flag}")
+    arch = dict(scale=opts.scale, num_groups=opts.num_groups,
+                num_blocks=opts.num_blocks, num_channels=opts.num_channels,
+                reduction=opts.reduction, device=device)
+    if not opts.model_path:
+        model = RCAN(**arch, seed=opts.seed)
+        print("WARNING: no --model_path; using randomly-initialized RCAN")
+    else:
+        model = RCAN(**arch, seed=None)
+        sd = load_rcan_pth(opts.model_path, opts.num_groups, opts.num_blocks,
+                           opts.scale)
+        model.load_state_dict({**model.state_dict(), **sd}, strict=True)
+        print(f"loaded RCAN from {opts.model_path}")
+    print(f"RCAN {opts.num_groups} groups x {opts.num_blocks} RCAB x "
+          f"{opts.num_channels} channels, reduction {opts.reduction}, "
+          f"x{opts.scale}: {count_parameters(model):,} parameters")
+    return model
+
+
 def build_generator(opts: Opts, device: torch.device) -> Generator:
     """The generator of ``opts``, with weights from ``--model_path`` (a
     ``.pth`` or a port checkpoint directory), blended with
@@ -127,7 +173,7 @@ def build_apply(opts: Opts, gen: Generator, lrs) -> tuple:
     """The apply that serves ``opts`` and its precision label (JAX's
     ``test.py:102-160``, ``:218-221``): int8 (guarded or not), the plain
     f32 forward, or the kernel path; folded in tiled modes unless
-    ``--no_fold``, always under int8 and its guard's fallback."""
+    ``--no_fold``, always under int8, its guard's fallback and RCAN."""
     fold = opts.fold and opts.tile_size != 0
     if opts.quant == "int8":
         # W8A8 with static per-channel scales, calibrated on the eval
@@ -150,6 +196,9 @@ def build_apply(opts: Opts, gen: Generator, lrs) -> tuple:
             return apply_fn, f"folded-{opts.compute_dtype}", report
         print("using int8 W8A8 inference path (calibrated)")
         return apply_fn, "int8-w8a8", report
+    if isinstance(gen, RCAN):
+        print("RCAN on fused_rcab, folded upsampler")
+        return RCANKernelApply(gen), f"folded-{opts.compute_dtype}", None
     label = ("folded-" if fold else "") + opts.compute_dtype
     if opts.compute_dtype == "float32":
         print("compute float32: plain PyTorch convs with TF32 off"
@@ -183,7 +232,8 @@ def run(argv=None) -> dict:
     mesh = (parallel.make_mesh(int(opts.mesh_shape), opts.device)
             if opts.mesh_shape else None)
     device = mesh.device if mesh is not None else resolve_device(opts.device)
-    gen = build_generator(opts, device)
+    gen = (build_rcan(opts, device) if opts.arch == "rcan"
+           else build_generator(opts, device))
     samples = load_eval_set(opts)
     lrs = [s.lr for s in samples]
     apply_fn, precision, report = build_apply(opts, gen, lrs)

@@ -201,6 +201,7 @@ def test_headline_bf16_leads_the_record():
     # CPU the plain versions run and no kernel is launched
     assert d["forwards"] == 2 and d["grid"] == (1, 1, 255, 168)
     assert d["launches"] == {"fused_resblock": 0, "fused_upsampler_stage": 0,
+                             "fused_rcab": 0, "rcab_excite": 0,
                              "fused_resblock_int8": 0}
     assert d["peak_bytes"] is None and d["seconds"] > 0
 

@@ -152,7 +152,8 @@ def test_kernel_wrappers_on_cpu_take_the_plain_path_and_count_nothing():
     np.testing.assert_array_equal(got.numpy(),
                                   upsampler_stage_reference(x, wt, b).numpy())
     assert kernels.launch_counts() == {"fused_resblock": 0,
-                                       "fused_upsampler_stage": 0}
+                                       "fused_upsampler_stage": 0,
+                                       "fused_rcab": 0, "rcab_excite": 0}
 
 
 def test_kernel_wrappers_refuse_a_device_they_do_not_serve():

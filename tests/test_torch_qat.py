@@ -125,7 +125,8 @@ def test_qat_apply_matches_jax_make_qat_apply():
     kernels.reset_launch_counts()
     got = state.apply(T(x)).detach().numpy()
     assert kernels.launch_counts() == {"fused_resblock": 0,
-                                       "fused_upsampler_stage": 0}
+                                       "fused_upsampler_stage": 0,
+                                       "fused_rcab": 0, "rcab_excite": 0}
     assert got.shape == want.shape == (2, 28, 22, 3)
     # a flip moves its value by one step, ~1% of the layer's range, and
     # spreads through the later convs: count the outputs it moves
@@ -218,7 +219,8 @@ def test_train_cli_runs_the_qat_phase(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "fake-quant" in out and "--fold_train is ignored" in out
     assert kernels.launch_counts() == {"fused_resblock": 0,
-                                       "fused_upsampler_stage": 0}
+                                       "fused_upsampler_stage": 0,
+                                       "fused_rcab": 0, "rcab_excite": 0}
     assert "val_psnr" in out and (tmp_path / "best").is_dir()
     summary = loop.run_training(opts_from_args(
         base + ["--num_epochs", "2", "--resume"], mode="train"))

@@ -219,7 +219,8 @@ def test_cli_quant_guard_serves_and_falls_back(floor, served, tmp_path,
         assert "using int8 W8A8 inference path (calibrated)" in out
     assert len(os.listdir(tmp_path / "synthetic")) == 5
     assert kernels.launch_counts() == {"fused_resblock": 0,
-                                       "fused_upsampler_stage": 0}
+                                       "fused_upsampler_stage": 0,
+                                       "fused_rcab": 0, "rcab_excite": 0}
 
 
 @pytest.mark.parametrize("extra,forwards", [

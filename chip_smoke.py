@@ -192,14 +192,17 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
               from rank 0, with the mesh keys).  The kernels line gains
               each kernel's sweep launches and errors.
 14. rcan     -- RCAN x4's kernels (``fused_rcab``, ``rcab_excite``, C =
-              64) at the batch engine's tile batch [8, 144, 342] (four
-              of them make a request of 8 DIV2K-sized LR photos): the
-              block without and with a pending block before it, and the
-              excite, each against its plain version (``x`` and the
-              excite within one bf16 ulp of ``h + s r``, ``r`` within
-              ATOL / RTOL of f32 math on the same operands, the pooled
-              sums within 1e-4); their times beside the bound and the
-              block in library calls; then ``RCANKernelApply`` at 10 x 20
+              64) at a ragged batch with odd B whose runs cross strips
+              and images ([3, 139, 300]) and at the batch engine's tile
+              batch [8, 144, 342] (four of them make a request of 8
+              DIV2K-sized LR photos): the schedule and ``rcab_work``,
+              one wave a launch, the block without and with a pending
+              block before it, and the excite, each against its plain
+              version (``x`` and the excite within one bf16 ulp of ``h +
+              s r``, ``r`` within ATOL / RTOL of f32 math on the same
+              operands, the pooled sums within 1e-4); at the tile batch
+              their times beside the bound and the block in library
+              calls; then ``RCANKernelApply`` at 10 x 20
               x 64 on one tile batch (branch ends scaled by
               ``RCAN_BRANCH_GAIN``): 200 ``fused_rcab`` and 10
               ``rcab_excite`` launches, its output against the plain f32
@@ -284,6 +287,8 @@ GRAD_REL_TOL = 3e-2
 # (1.1 and 11; the sound kernel reads ~0.4 and ~3, channel attention
 # removed ~19 rms).
 RCAN_TILE = (8, 144, 342)
+# A ragged batch with odd B whose schedule's runs cross strips and images.
+RCAN_RAGGED = (3, 139, 300)
 RCAN_GROUPS, RCAN_BLOCKS, RCAN_CHANNELS = 10, 20, 64
 RCAN_BRANCH_GAIN = 0.3
 RCAN_RMS_LSB, RCAN_MAX_LSB = 1.1, 11.0
@@ -4334,19 +4339,17 @@ def bench_keys(bench_res: dict, name: str) -> dict:
             "bench_max_abs_err": max(bench_res["held"][name])}
 
 
-def check_rcab(card: str) -> dict:
+def check_rcab_at(shape, dev, g) -> tuple:
     """``fused_rcab`` (first block of a group, and with the block before
-    pending) and ``rcab_excite`` at the tile batch ``RCAN_TILE``, C = 64,
-    against their plain versions; their times."""
+    pending) and ``rcab_excite`` at ``shape`` [B, H, W], C = 64, against
+    their plain versions; the schedule and its steps (``rcab_work``), and
+    one wave a launch.  -> (results, the operands for timing)."""
     import torch
     import torch.nn.functional as F
     from pesr_torch.ops.kernels import rcab as K
-    from pesr_torch.ops.kernels.resblock import (pack_resblock,
-                                                 unpack_resblock)
-    b, h, w = RCAN_TILE
+    from pesr_torch.ops.kernels.resblock import pack_resblock
+    b, h, w = shape
     c = RCAN_CHANNELS
-    dev = torch.device("cuda", 0)
-    g = torch.Generator(device=dev).manual_seed(64)
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=dev) * scale
@@ -4360,20 +4363,33 @@ def check_rcab(card: str) -> dict:
                         rnd(c // 16, scale=0.1),
                         rnd(c, c // 16, 1, 1, scale=0.5), rnd(c, scale=0.1))
     hh, rr = rnd(b, h, w, c).bfloat16(), rnd(b, h, w, c).bfloat16()
-    sched = K.rcab_schedule(b, h, w, K._max_clusters(dev))
-    parts = sched.strips * sched.segs
+    clusters = K._max_clusters(dev)
+    sched = K.rcab_schedule(b, h, w, clusters)
+    work = K.rcab_work(b, h, w, clusters)
+    parts = sched.pool_rows
     pool = rnd(b, parts, c, scale=h * w / parts)
     s = K.squeeze_excite(pool, h * w, *sq)[:, None, None]
     # one bf16 ulp of h + s r (s is summed in another order)
     ulp = (hh.float().abs() + (s * rr.float()).abs()) * 2.0 ** -7
-    res = {"shape": [b, h, w, c], "schedule": list(sched)}
-    print(f"[rcan] fused_rcab at [{b},{h},{w},{c}], schedule {sched}",
-          flush=True)
+    res = {"shape": [b, h, w, c], "clusters": clusters,
+           "schedule": {"ctas": sched.ctas, "strips": sched.strips,
+                        "steps": sched.steps, "pool_rows": parts,
+                        "critical": sched.critical},
+           "work": dict(zip(("ctas", "waves", "critical_steps",
+                             "computed_steps", "useful_steps"), work))}
+    print(f"[rcan] fused_rcab at [{b},{h},{w},{c}] on {clusters} clusters: "
+          f"schedule {res['schedule']}, rcab_work {res['work']}, segments "
+          f"per CTA {min(map(len, sched.segments))}.."
+          f"{max(map(len, sched.segments))}", flush=True)
     for pending in (False, True):
         what = "pending block" if pending else "first block"
+        launches, waves = K.fused_rcab.launches, K.fused_rcab.waves
         x, rn, pn = K.fused_rcab(hh, rr if pending else None,
                                  pool if pending else None, *sq, *convs)
         torch.cuda.synchronize()
+        if (K.fused_rcab.launches - launches, K.fused_rcab.waves - waves) \
+                != (1, 1):
+            fail(f"fused_rcab ({what}): not one wave a launch")
         want_x = K.excite_reference(hh, rr, pool, *sq) if pending else hh
         dx = (x.float() - want_x.float()).abs()
         print(f"  fused_rcab ({what}) x: max|d| {float(dx.max()):.4g}, "
@@ -4402,6 +4418,23 @@ def check_rcab(card: str) -> dict:
         fail("rcab_excite is not h + s r")
     res["max_abs_err"] = res["r_pending"]["max_abs_err"]
     res["excite_max_abs_err"] = float(de.max())
+    return res, (hh, rr, pool, s, sq, convs, c1w, c2w, c1b, c2b)
+
+
+def check_rcab(card: str) -> dict:
+    """:func:`check_rcab_at` at ``RCAN_RAGGED`` and the tile batch
+    ``RCAN_TILE``, then the times at ``RCAN_TILE``."""
+    import torch
+    import torch.nn.functional as F
+    from pesr_torch.ops.kernels import rcab as K
+    from pesr_torch.ops.kernels.resblock import unpack_resblock
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(64)
+    ragged, _ = check_rcab_at(RCAN_RAGGED, dev, g)
+    res, ops = check_rcab_at(RCAN_TILE, dev, g)
+    res["ragged"] = ragged
+    hh, rr, pool, s, sq, convs, c1w, c2w, c1b, c2b = ops
+    b, h, w, c = res["shape"]
 
     # library yardstick: the same block in cuDNN bf16 convs (channels
     # last) and torch's excite and pool
@@ -4483,9 +4516,12 @@ def phase_rcan(card: str) -> dict:
     got = {k: counts[k] for k in ("fused_rcab", "rcab_excite")}
     want = {"fused_rcab": RCAN_GROUPS * RCAN_BLOCKS,
             "rcab_excite": RCAN_GROUPS}
-    print(f"  launches per forward {got} (expected {want})", flush=True)
-    if got != want:
-        fail(f"RCANKernelApply: launch counts {got} != {want}")
+    waves = kernels.fused_rcab.waves
+    print(f"  launches per forward {got} (expected {want}), fused_rcab "
+          f"waves / launches {waves / max(1, got['fused_rcab'])}", flush=True)
+    if got != want or waves != got["fused_rcab"]:
+        fail(f"RCANKernelApply: launch counts {got} != {want}, or "
+             f"{waves} waves")
     with torch.no_grad():
         ref = net(x)
     k = 4 * apply_fn.min_halo  # the fold is exact inside this HR border

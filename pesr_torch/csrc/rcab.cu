@@ -20,8 +20,8 @@
 // before (its windows, by TMA), recomputes that block's s from its pooled
 // partial sums (64 x C/16 + C/16 x 64 MACs per image, cheap enough for
 // every CTA), writes the carry x it made and its own branch r, and leaves
-// one partial sum per CTA and channel.  One launch per block; the last
-// block of a residual group is applied by rcab_excite_kernel.
+// one partial sum per segment (below) and channel.  One launch per block;
+// the last block of a residual group is applied by rcab_excite_kernel.
 //
 // What bounds it on the H100, per LR pixel and block at C = 64: the two
 // convs are 147,456 FLOP (0.149 ns at 989 TFLOP/s); it reads h and r and
@@ -31,10 +31,17 @@
 // work, so the per-stage waits and loads of the mainloop, not the tensor
 // cores, set the pace.  The design:
 //
-//   * resblock.cu's line mode (a strip segment of 62 output columns per
-//     CTA, conv1 into a ring of hidden rows, conv2 from it, the TMA weight
-//     ring multicast across a cluster of two CTAs; conv3x3_tile.cuh), in
-//     steps of four rows: each consumer warpgroup runs two 64-pixel rows
+//   * one wave of CTAs, as many clusters of two as the device runs at
+//     once: a tile's work is its image-strips (62 output columns each) in
+//     steps of four rows, and each CTA runs a list of segments, as a rule
+//     one contiguous run of those steps, cut so that the busiest CTA runs
+//     as few steps as it can (rcab_schedule).  A run may cross a strip
+//     and an image: each piece of it is a segment, resblock.cu's
+//     line mode (conv1 into a ring of hidden rows, conv2 from it, the TMA
+//     weight ring multicast across the cluster; conv3x3_tile.cuh), which
+//     starts with a conv1-only step that fills its hidden ring.  The two
+//     CTAs of a cluster run segments of the same lengths (the same weight
+//     sequence).  In a step each consumer warpgroup runs two 64-pixel rows
 //     per weight stage (four m64n64k16 MMAs on one pair of descriptors),
 //     twice resblock.cu's work per wait; hence 6-row windows, an 8-row
 //     hidden ring and an 8-stage weight ring.  A chunk's nine taps are
@@ -49,9 +56,12 @@
 //     (rows 2-5 of each step's window), so the consumers' epilogue reads
 //     nothing from device memory;
 //   * the conv2 epilogue writes r (bf16) and sums r (f32, before
-//     rounding) over the CTA's valid pixels per channel in registers.  At
-//     the end the CTA reduces its sums in a fixed order and writes one row
-//     of partials: no atomics, so a launch is deterministic.
+//     rounding) over the segment's valid pixels per channel in registers.
+//     At the segment's end the CTA reduces its sums in a fixed order and
+//     writes its row of its image's P rows of partials, and the image's
+//     last segment zeros the rows no segment fills: no atomics and no
+//     memset, so a launch is deterministic;
+//   * the combining warps recompute s where a run enters another image.
 //
 // Shared memory: hidden ring 65,536 B, weight ring 32,768 B, window and r
 // rings 2 x 2 x 25,600 B, barriers, s, the squeeze's scratch and the
@@ -104,8 +114,8 @@ struct Layout {
 
 // The squeeze MLP of one image: s[c] = sigmoid(bu[c] + sum_j wu[c][j]
 // relu(bd[j] + sum_c' wd[j][c'] mean[c'])), mean[c] = the sum of the P
-// partials pool[b][p][c] over hw.  Every thread of the block calls it (it
-// synchronises the block); blockDim >= kC.
+// partials pool[b][p][c] over hw.  Threads t = 0 .. n - 1, n >= kC, call
+// it together; sync() is their barrier.
 struct Squeeze {
   const float* wd;  // [cr][C]
   const float* bd;  // [cr]
@@ -114,27 +124,40 @@ struct Squeeze {
   int cr;
 };
 
+template <class Sync>
 __device__ void squeeze_excite(float* s, float* scratch, const float* __restrict__ pool, int P,
-                               int b, float hw, const Squeeze& q) {
-  const int t = threadIdx.x;
+                               int b, float hw, const Squeeze& q, int t, Sync sync) {
   if (t < kC) {
     float a = 0.0f;
     for (int p = 0; p < P; ++p) a += pool[(static_cast<int64_t>(b) * P + p) * kC + t];
     scratch[t] = a / hw;
   }
-  __syncthreads();
+  sync();
   if (t < q.cr) {
     float z = q.bd[t];
     for (int c = 0; c < kC; ++c) z += q.wd[t * kC + c] * scratch[c];
     scratch[kC + t] = fmaxf(z, 0.0f);
   }
-  __syncthreads();
+  sync();
   if (t < kC) {
     float u = q.bu[t];
     for (int j = 0; j < q.cr; ++j) u += q.wu[t * q.cr + j] * scratch[kC + j];
     s[t] = 1.0f / (1.0f + expf(-u));
   }
-  __syncthreads();
+  sync();
+}
+
+// s of image b for the combining threads (t = 0 .. kCombine - 1, barrier
+// 4): the squeeze, or zeros past the batch (h = r = 0 there).
+__device__ __forceinline__ void combine_scales(float* s, float* scratch, const float* pool, int P,
+                                               int b, int B, float hw, const Squeeze& q, int t) {
+  const auto sync = [] { named_barrier(4, kCombine); };
+  if (b < B) {
+    squeeze_excite(s, scratch, pool, P, b, hw, q, t, sync);
+  } else {
+    if (t < kC) s[t] = 0.0f;
+    sync();
+  }
 }
 
 // bf16(h + s r) for 8 channels (16 bytes) whose scales start at s: the
@@ -318,15 +341,27 @@ __device__ __forceinline__ void init_bars(RcabBars& q) {
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
 }
 
-// CTA i (of ctas, a multiple of kCluster) owns image i / (strips segs),
-// strip i % strips (output columns [62 s, 62 s + 62)), segment
-// (i / strips) % segs (output rows [rows g, rows g + rows), rows a
-// multiple of 4); it writes row i of pool_out ([B * strips * segs][C]).
-// Step s (0..rows / 4) runs conv1 on hidden rows 4 s .. 4 s + 3 (image
-// rows y0 - 1 + k), then (s > 0) conv2 on output rows y0 + 4 s - 4 ..
-// y0 + 4 s - 1.  r_prev == nullptr: the first block of a group, whose
-// input is h itself (x = h; r_prev is only tested, its windows come
-// through rmap).
+// One segment of a CTA's run (rcab_schedule in ops/kernels/rcab.py):
+// image-strip g (image g / strips, output columns [62 (g % strips), +62)),
+// 4-row steps [j0, j0 + n) (output rows [4 j0, 4 j0 + 4 n), those past the
+// image computed on zeros and not stored; g past the batch stores
+// nothing); its pooled sums go to row `row` of its image, zeros to the
+// `fill` rows after it.
+struct Segment {
+  int g, j0, n, row, fill;
+};
+static_assert(sizeof(Segment) == 5 * sizeof(int), "the schedule's table layout");
+
+// A launch is one wave: CTA i runs segments [runs[i], runs[i + 1]) of the
+// Segment table that follows runs[0 .. gridDim.x], in order, carrying its
+// rings from one to the next; the two CTAs of a cluster run segments of
+// the same lengths, so they walk one multicast weight sequence.  A
+// segment is resblock.cu's line-mode segment in steps of four rows: step
+// s (0..n) runs conv1 on its hidden rows 4 s .. 4 s + 3 (image rows
+// y0 - 1 + k, y0 = 4 j0), then (s > 0) conv2 on output rows
+// y0 + 4 s - 4 .. y0 + 4 s - 1.  r_prev == nullptr: the first block of a
+// group, whose input is h itself (x = h; r_prev is only tested, its
+// windows come through rmap).
 __global__ void __launch_bounds__(kThreads, 1)
     rcab_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ CUtensorMap rmap,
                 const __grid_constant__ CUtensorMap w1map,
@@ -334,27 +369,27 @@ __global__ void __launch_bounds__(kThreads, 1)
                 const float* __restrict__ pool_prev, int p_prev, Squeeze sq,
                 const float* __restrict__ b1, const float* __restrict__ b2,
                 bf16* __restrict__ x_out, bf16* __restrict__ r_out, float* __restrict__ pool_out,
-                int B, int H, int W, int rows, int strips, int segs) {
+                int B, int H, int W, int strips, int P, const int* __restrict__ runs) {
   using L = Layout;
   extern __shared__ __align__(1024) uint8_t smem[];
   auto& bars = *reinterpret_cast<RcabBars*>(smem + L::kBarsOff);
   float* s_vec = reinterpret_cast<float*>(smem + L::kSOff);
+  float* scratch = reinterpret_cast<float*>(smem + L::kScratchOff);
   const uint32_t rank = cluster_rank();
   const bool has_prev = r_prev != nullptr;
+  const float hw = static_cast<float>(H) * static_cast<float>(W);
 
-  const int item = blockIdx.x;
-  const int b = item / (strips * segs);
-  const int rr = item % (strips * segs);
-  const int y0 = (rr / strips) * rows, x0 = (rr % strips) * kStripOut;
-  const int steps = rows / kStepRows;
+  const int e0 = __ldg(runs + blockIdx.x), e1 = __ldg(runs + blockIdx.x + 1);
+  const Segment* segs = reinterpret_cast<const Segment*>(runs + gridDim.x + 1);
+  const int b_first = e0 < e1 ? __ldg(&segs[e0].g) / strips : B;
 
   if (threadIdx.x == 0) {
     if (smem_u32(smem) & 1023) __trap();
     init_bars(bars);
   }
-  if (has_prev && b < B) {
-    squeeze_excite(s_vec, reinterpret_cast<float*>(smem + L::kScratchOff), pool_prev, p_prev, b,
-                   static_cast<float>(H) * static_cast<float>(W), sq);
+  if (has_prev && b_first < B) {
+    squeeze_excite(s_vec, scratch, pool_prev, p_prev, b_first, hw, sq, threadIdx.x,
+                   [] { __syncthreads(); });
   } else if (threadIdx.x < kC) {
     s_vec[threadIdx.x] = 0.0f;
   }
@@ -368,23 +403,37 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int t = threadIdx.x - kConsumers;
     if (t == 0) {
       RingPos wpos;
-      for (int s = 0; s <= steps; ++s) {
-        for (int kc = 0; kc < kKC; ++kc)
-          for (int tap = 0; tap < 9; ++tap)
-            produce_weights<kC>(bars.p, smem + L::kWRingOff, wpos, &w1map, kc, 0, tap, rank);
-        if (s > 0)
+      for (int si = e0; si < e1; ++si) {
+        const int steps = __ldg(&segs[si].n);
+        for (int s = 0; s <= steps; ++s) {
           for (int kc = 0; kc < kKC; ++kc)
             for (int tap = 0; tap < 9; ++tap)
-              produce_weights<kC>(bars.p, smem + L::kWRingOff, wpos, &w2map, kc, 0, tap, rank);
+              produce_weights<kC>(bars.p, smem + L::kWRingOff, wpos, &w1map, kc, 0, tap, rank);
+          if (s > 0)
+            for (int kc = 0; kc < kKC; ++kc)
+              for (int tap = 0; tap < 9; ++tap)
+                produce_weights<kC>(bars.p, smem + L::kWRingOff, wpos, &w2map, kc, 0, tap, rank);
+        }
       }
     } else if (t >= 32) {
-      // Chunk k = kKC s + kc, the window of step s starting at image row
-      // y0 - 2 + 4 s.
-      for (int k = 0; k < (steps + 1) * kKC; ++k) {
-        const int s = k / kKC;
-        combine_window(bars, smem + L::kWinOff, smem + L::kROff, k, s_vec, has_prev, &hmap,
-                       &rmap, CarryOut{x_out, b, B, H, W, x0, y0 - 2 + 4 * s, s < steps},
-                       t - 32);
+      // Chunk k counts on across segments (window slot k % 2); a step's
+      // window starts at image row y0 - 2 + 4 s.
+      int k = 0, b_s = b_first;  // b_s: the image s_vec is for
+      for (int si = e0; si < e1; ++si) {
+        const int g = __ldg(&segs[si].g), steps = __ldg(&segs[si].n);
+        const int b = g / strips, x0 = (g % strips) * kStripOut;
+        const int y0 = kStepRows * __ldg(&segs[si].j0);
+        if (has_prev && b != b_s) {
+          named_barrier(4, kCombine);  // every combining thread is done with image b_s
+          combine_scales(s_vec, scratch, pool_prev, p_prev, b, B, hw, sq, t - 32);
+          b_s = b;
+        }
+        for (int i = 0; i < (steps + 1) * kKC; ++i, ++k) {
+          const int s = i / kKC;
+          combine_window(bars, smem + L::kWinOff, smem + L::kROff, k, s_vec, has_prev, &hmap,
+                         &rmap, CarryOut{x_out, b, B, H, W, x0, y0 - 2 + 4 * s, s < steps},
+                         t - 32);
+        }
       }
     }
     __syncwarp();
@@ -396,88 +445,100 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31, q = lane & 3;
     const uint32_t hid = smem_u32(smem), wring = smem_u32(smem + L::kWRingOff);
     const WindowA2 wa{smem_u32(smem + L::kWinOff), wg, lane_row(), lane_khalf()};
+    float* red = reinterpret_cast<float*>(smem + L::kRedOff);
     RingPos wpos, ipos;
     float acc[2][kC / 2];
-    float psum[kC / 4];  // channel 8 j + 2 q + e at 2 j + e
+    for (int si = e0; si < e1; ++si) {
+      const int g = __ldg(&segs[si].g), steps = __ldg(&segs[si].n);
+      const int b = g / strips, x0 = (g % strips) * kStripOut;
+      const int y0 = kStepRows * __ldg(&segs[si].j0);
+      float psum[kC / 4];  // channel 8 j + 2 q + e at 2 j + e
 #pragma unroll
-    for (int i = 0; i < kC / 4; ++i) psum[i] = 0.0f;
-    for (int s = 0; s <= steps; ++s) {
-      conv3x3_rows2<kKC, kStages, true>(acc, bars.p, wring, wpos, ipos, wa);
-      if (s > 0) named_barrier(1, kConsumers);  // conv2 of step s-1 is done with the ring
+      for (int i = 0; i < kC / 4; ++i) psum[i] = 0.0f;
+      for (int s = 0; s <= steps; ++s) {
+        conv3x3_rows2<kKC, kStages, true>(acc, bars.p, wring, wpos, ipos, wa);
+        // conv2 of step s-1 is done with the ring (a segment's last one:
+        // its barrier 3)
+        if (s > 0) named_barrier(1, kConsumers);
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        // hidden row k = 4 s + 2 wg + r (image row y0 - 1 + k)
-        const int k = kStepRows * s + 2 * wg + r, gy = y0 - 1 + k;
-        const bool row_in = gy >= 0 && gy < H;
+        for (int r = 0; r < 2; ++r) {
+          // hidden row k = 4 s + 2 wg + r (image row y0 - 1 + k)
+          const int k = kStepRows * s + 2 * wg + r, gy = y0 - 1 + k;
+          const bool row_in = gy >= 0 && gy < H;
 #pragma unroll
-        for (int j = 0; j < kC / 8; ++j) {
-          const int n = 8 * j + 2 * q;
-          const float2 bb = __ldg(reinterpret_cast<const float2*>(b1 + n));
+          for (int j = 0; j < kC / 8; ++j) {
+            const int n = 8 * j + 2 * q;
+            const float2 bb = __ldg(reinterpret_cast<const float2*>(b1 + n));
+#pragma unroll
+            for (int v = 0; v < 2; ++v) {
+              const int p = warp * 16 + (lane >> 2) + 8 * v;
+              const int gx = x0 - 1 + p;
+              const bool in = row_in && gx >= 0 && gx < W;
+              const float h0 = in ? fmaxf(acc[r][4 * j + 2 * v] + bb.x, 0.0f) : 0.0f;
+              const float h1 = in ? fmaxf(acc[r][4 * j + 2 * v + 1] + bb.y, 0.0f) : 0.0f;
+              const uint32_t a = hidden_addr(hid, k, p, j) + 4 * q;
+              asm volatile("st.shared.b32 [%0], %1;" ::"r"(a), "r"(pack_bf16x2(h0, h1))
+                           : "memory");
+            }
+          }
+        }
+        named_barrier(2, kConsumers);  // the hidden rows of step s are written
+        if (s == 0) continue;
+        conv3x3_rows2<kKC, kStages, false>(acc, bars.p, wring, wpos, ipos,
+                                           HiddenA2{hid, wg, lane_row(), lane_khalf(), s});
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int o = y0 + kStepRows * (s - 1) + 2 * wg + r;
 #pragma unroll
           for (int v = 0; v < 2; ++v) {
             const int p = warp * 16 + (lane >> 2) + 8 * v;
-            const int gx = x0 - 1 + p;
-            const bool in = row_in && gx >= 0 && gx < W;
-            const float h0 = in ? fmaxf(acc[r][4 * j + 2 * v] + bb.x, 0.0f) : 0.0f;
-            const float h1 = in ? fmaxf(acc[r][4 * j + 2 * v + 1] + bb.y, 0.0f) : 0.0f;
-            const uint32_t a = hidden_addr(hid, k, p, j) + 4 * q;
-            asm volatile("st.shared.b32 [%0], %1;" ::"r"(a), "r"(pack_bf16x2(h0, h1))
-                         : "memory");
-          }
-        }
-      }
-      named_barrier(2, kConsumers);  // the hidden rows of step s are written
-      if (s == 0) continue;
-      conv3x3_rows2<kKC, kStages, false>(acc, bars.p, wring, wpos, ipos,
-                                         HiddenA2{hid, wg, lane_row(), lane_khalf(), s});
+            const int gx = x0 + p;
+            const bool valid = b < B && o < H && p < kStripOut && gx < W;
+            const int64_t pix = (static_cast<int64_t>(b) * H + o) * W + gx;
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int o = y0 + kStepRows * (s - 1) + 2 * wg + r;
+            for (int t = 0; t < kC / 32; ++t) {
+              uint32_t e[4];
 #pragma unroll
-        for (int v = 0; v < 2; ++v) {
-          const int p = warp * 16 + (lane >> 2) + 8 * v;
-          const int gx = x0 + p;
-          const bool valid = b < B && o < H && p < kStripOut && gx < W;
-          const int64_t pix = (static_cast<int64_t>(b) * H + o) * W + gx;
-#pragma unroll
-          for (int t = 0; t < kC / 32; ++t) {
-            uint32_t e[4];
-#pragma unroll
-            for (int g = 0; g < 4; ++g) {
-              const int j = 4 * t + g;
-              const float2 bb = __ldg(reinterpret_cast<const float2*>(b2 + 8 * j + 2 * q));
-              const float r0 = acc[r][4 * j + 2 * v] + bb.x;
-              const float r1 = acc[r][4 * j + 2 * v + 1] + bb.y;
-              psum[2 * j] += valid ? r0 : 0.0f;
-              psum[2 * j + 1] += valid ? r1 : 0.0f;
-              e[g] = pack_bf16x2(r0, r1);
+              for (int g = 0; g < 4; ++g) {
+                const int j = 4 * t + g;
+                const float2 bb = __ldg(reinterpret_cast<const float2*>(b2 + 8 * j + 2 * q));
+                const float r0 = acc[r][4 * j + 2 * v] + bb.x;
+                const float r1 = acc[r][4 * j + 2 * v + 1] + bb.y;
+                psum[2 * j] += valid ? r0 : 0.0f;
+                psum[2 * j + 1] += valid ? r1 : 0.0f;
+                e[g] = pack_bf16x2(r0, r1);
+              }
+              quad_transpose(e);  // lane q: the 8 channels of group 4 t + q
+              if (valid)
+                *reinterpret_cast<uint4*>(r_out + pix * kC + 8 * (4 * t + q)) =
+                    make_uint4(e[0], e[1], e[2], e[3]);
             }
-            quad_transpose(e);  // lane q: the 8 channels of group 4 t + q
-            if (valid)
-              *reinterpret_cast<uint4*>(r_out + pix * kC + 8 * (4 * t + q)) =
-                  make_uint4(e[0], e[1], e[2], e[3]);
           }
         }
       }
-    }
-    // The CTA's sums: over the 8 lanes of each q, then over the 8 warps in
-    // order.
+      // The segment's sums: over the 8 lanes of each q, then over the 8
+      // warps in order, into its row of image b (and zeros into the fill
+      // rows after it).  The next segment writes `red` only after its
+      // first barrier 2, when these reads are done.
 #pragma unroll
-    for (int i = 0; i < kC / 4; ++i)
+      for (int i = 0; i < kC / 4; ++i)
 #pragma unroll
-      for (int m = 4; m < 32; m <<= 1) psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], m);
-    float* red = reinterpret_cast<float*>(smem + L::kRedOff);
-    if (lane < 4)
+        for (int m = 4; m < 32; m <<= 1) psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], m);
+      if (lane < 4)
 #pragma unroll
-      for (int j = 0; j < kC / 8; ++j) {
-        red[(threadIdx.x >> 5) * kC + 8 * j + 2 * lane] = psum[2 * j];
-        red[(threadIdx.x >> 5) * kC + 8 * j + 2 * lane + 1] = psum[2 * j + 1];
+        for (int j = 0; j < kC / 8; ++j) {
+          red[(threadIdx.x >> 5) * kC + 8 * j + 2 * lane] = psum[2 * j];
+          red[(threadIdx.x >> 5) * kC + 8 * j + 2 * lane + 1] = psum[2 * j + 1];
+        }
+      named_barrier(3, kConsumers);
+      if (threadIdx.x < kC && b < B) {
+        float a = 0.0f;
+        for (int w = 0; w < kConsumerWarps; ++w) a += red[w * kC + threadIdx.x];
+        const int row = __ldg(&segs[si].row), fill = __ldg(&segs[si].fill);
+        float* out = pool_out + (static_cast<int64_t>(b) * P + row) * kC + threadIdx.x;
+        out[0] = a;
+        for (int z = 1; z <= fill; ++z) out[z * kC] = 0.0f;
       }
-    named_barrier(3, kConsumers);
-    if (threadIdx.x < kC && b < B) {
-      float a = 0.0f;
-      for (int w = 0; w < kConsumerWarps; ++w) a += red[w * kC + threadIdx.x];
-      pool_out[static_cast<int64_t>(item) * kC + threadIdx.x] = a;
     }
     cluster_sync();
   }
@@ -491,7 +552,8 @@ __global__ void __launch_bounds__(256)
                        int H, int W) {
   __shared__ float s[kC], scratch[kC + kMaxReduced];
   const int b = blockIdx.y;
-  squeeze_excite(s, scratch, pool, P, b, static_cast<float>(H) * static_cast<float>(W), sq);
+  squeeze_excite(s, scratch, pool, P, b, static_cast<float>(H) * static_cast<float>(W), sq,
+                 threadIdx.x, [] { __syncthreads(); });
   const int64_t per = static_cast<int64_t>(H) * W * (kC / 8);  // 16-byte pieces per image
   const uint4* hv = reinterpret_cast<const uint4*>(h) + b * per;
   const uint4* rv = reinterpret_cast<const uint4*>(r) + b * per;
@@ -513,21 +575,22 @@ bool valid_squeeze(const Squeeze& q) {
 // pool_prev is not read).  pool_prev: [B][p_prev][64] f32 partial sums of
 // r_prev; wd [cr][64], bd [cr], wu [64][cr], bu [64] f32: the squeeze of
 // the block before.  w1, w2: [3, 3, 64, 64] bf16 packed [tap][output]
-// [input]; b1, b2: [64] f32.  rows / strips / segs / ctas: the line-mode
-// schedule of resblock_schedule (rows even, ctas a multiple of 2 and >=
-// B strips segs); pool_out: [B strips segs][64] f32.  Returns the CUDA
-// error code of the launch (0 = launched).
+// [input]; b1, b2: [64] f32.  strips (of 62 columns), P, ctas and runs
+// (device int32: ctas + 1 offsets, then the Segment table): the schedule
+// of rcab_schedule, ctas a multiple of 2 that the device runs at once;
+// pool_out: [B][P][64] f32.  Returns the CUDA error code of the launch
+// (0 = launched).
 extern "C" int pesr_fused_rcab(const void* h, const void* r_prev, const void* pool_prev,
                                int p_prev, const void* wd, const void* bd, const void* wu,
                                const void* bu, int cr, const void* w1, const void* b1,
                                const void* w2, const void* b2, void* x_out, void* r_out,
-                               void* pool_out, int B, int H, int W, int C, int rows, int strips,
-                               int segs, int ctas, void* stream) {
+                               void* pool_out, int B, int H, int W, int C, int strips, int P,
+                               int ctas, const void* runs, void* stream) {
   using namespace pesr;
   const Squeeze sq{static_cast<const float*>(wd), static_cast<const float*>(bd),
                    static_cast<const float*>(wu), static_cast<const float*>(bu), cr};
-  if (C != kC || rows < kStepRows || rows % kStepRows || ctas % kCluster ||
-      ctas < B * strips * segs ||
+  if (C != kC || strips != (W + kStripOut - 1) / kStripOut || P < 1 || ctas < kCluster ||
+      ctas % kCluster || runs == nullptr ||
       (r_prev != nullptr && (p_prev < 1 || pool_prev == nullptr || !valid_squeeze(sq))))
     return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap hm, rm, w1m, w2m;
@@ -541,7 +604,7 @@ extern "C" int pesr_fused_rcab(const void* h, const void* r_prev, const void* po
       static_cast<const bf16*>(r_prev),
       static_cast<const float*>(pool_prev), p_prev, sq, static_cast<const float*>(b1),
       static_cast<const float*>(b2), static_cast<bf16*>(x_out), static_cast<bf16*>(r_out),
-      static_cast<float*>(pool_out), B, H, W, rows, strips, segs));
+      static_cast<float*>(pool_out), B, H, W, strips, P, static_cast<const int*>(runs)));
 }
 
 // out = bf16(h + s r), s the squeeze of r's pooled partials pool [B][p][64];

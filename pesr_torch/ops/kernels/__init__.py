@@ -5,8 +5,8 @@ forward, a backward of library convolution gradients that recomputes
 only what they read).  :func:`launch_counts` gives the bf16 kernels'
 counters, RCAN's block and excite (``rcab.py``, inference only) among
 them; the int8 block's (an inference-only path) is
-``fused_resblock_int8.launches``, which :func:`reset_launch_counts`
-resets too."""
+``fused_resblock_int8.launches``, and ``fused_rcab.waves`` counts the
+RCAB's waves of CTAs: :func:`reset_launch_counts` resets both too."""
 
 from pesr_torch.ops.kernels.resblock import (fused_resblock,  # noqa: F401
                                              fused_resblock_train,
@@ -26,6 +26,7 @@ def reset_launch_counts() -> None:
     fused_upsampler_stage.launches = 0
     fused_resblock_int8.launches = 0
     fused_rcab.launches = 0
+    fused_rcab.waves = 0
     rcab_excite.launches = 0
 
 

@@ -17,8 +17,9 @@ pending block (the first block of a group; ``x`` is ``h``).
 no block follows (the end of a residual group).
 
 ``pool`` is ``[B, P, C]`` float32: partial sums of ``r`` over the tile,
-whose sum over ``P`` is the tile's (the kernel writes one row per CTA,
-``P`` = strips x segments of its schedule; the plain version one).  The
+whose sum over ``P`` is the tile's (the kernel writes one row per segment
+of its schedule and zeros in the rows of an image that no segment fills,
+``P`` = the schedule's ``pool_rows``; the plain version one row).  The
 squeeze's weights are float32: ``wd [C/red, C]``, ``bd [C/red]``, ``wu
 [C, C/red]``, ``bu [C]`` (:func:`pack_squeeze`); the convs' as
 :func:`~pesr_torch.ops.kernels.resblock.pack_resblock` packs them.
@@ -26,24 +27,26 @@ squeeze's weights are float32: ``wd [C/red, C]``, ``bd [C/red]``, ``wu
 Both are ``torch.library`` custom ops (``pesr::fused_rcab``,
 ``pesr::rcab_excite``): the kernel on a CUDA tensor (bf16 NHWC, C = 64),
 the plain version on a CPU tensor.  ``fused_rcab.launches`` and
-``rcab_excite.launches`` count launches.  The library builds at the
-first launch, alone (``build.ON_DEMAND``).  :func:`rcab_schedule` is the
-kernel's decomposition (``resblock.py``'s line mode in steps of four
-rows), computed here so that the CPU tests can check it.
+``rcab_excite.launches`` count launches, ``fused_rcab.waves`` the block's
+waves of CTAs.  The library builds at the first launch, alone
+(``build.ON_DEMAND``).  :func:`rcab_schedule` is the kernel's schedule
+(one wave of CTAs, each running a contiguous run of 4-row steps that may
+cross strips and images), computed here so that the CPU tests can check
+it; :func:`rcab_work` counts its steps.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+import itertools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from pesr_torch.ops.kernels import build
 from pesr_torch.ops.kernels.common import conv3x3_nhwc
 from pesr_torch.ops.kernels.resblock import (CLUSTER, STRIP_OUT,
-                                             ResblockSchedule,
                                              unpack_resblock)
 
 KERNEL_CHANNELS = (64,)
@@ -51,7 +54,8 @@ STEP_ROWS = 4     # output rows of a step (kStepRows, rcab.cu)
 MAX_REDUCED = 64  # widest squeeze the kernel takes (kMaxReduced, rcab.cu)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_RCAB_ARGS = ([_P] * 3 + [_I] + [_P] * 4 + [_I] + [_P] * 7 + [_I] * 8 + [_P])
+_RCAB_ARGS = ([_P] * 3 + [_I] + [_P] * 4 + [_I] + [_P] * 7 + [_I] * 7
+              + [_P] * 2)
 _EXCITE_ARGS = [_P] * 3 + [_I] + [_P] * 4 + [_I] + [_P] + [_I] * 4 + [_P]
 
 
@@ -100,28 +104,145 @@ def rcab_reference(h: torch.Tensor, r: Optional[torch.Tensor],
     return x, rn, rn.float().sum((1, 2))[:, None, :]
 
 
+class RcabSchedule(NamedTuple):
+    """The kernel's schedule: one wave of ``ctas`` CTAs (the clusters of
+    :data:`CLUSTER` the device runs at once), CTA i running the segments
+    ``segments[i]`` in order.  The work is the batch's image-strips
+    (image-strip g: image ``g // strips``, output columns ``[62 (g %
+    strips), +62)``), each ``steps`` steps of :data:`STEP_ROWS` output
+    rows.  A segment ``(g, j0, n, row, fill)`` runs steps ``[j0, j0 +
+    n)`` of image-strip g: one conv1-only step that fills the hidden
+    ring, then n steps of conv1 and conv2 (rows past the image and g past
+    the batch are computed on zeros and not stored).  It writes its
+    pooled partial sums to row ``row`` of its image's ``pool_rows`` and
+    zeros to the ``fill`` rows after it (its image's last segment), so
+    every row is written once.  ``critical``: the most conv1 + conv2
+    steps of a CTA."""
+    ctas: int
+    strips: int
+    steps: int
+    pool_rows: int
+    critical: int
+    segments: Tuple[Tuple[Tuple[int, int, int, int, int], ...], ...]
+
+
+def _cost(segs) -> int:
+    return sum(2 * n + 1 for _, n in segs)
+
+
+def _runs(total: int, steps: int, half: int, clusters: int) -> list:
+    """Rank 0 of each cluster takes offsets of ``[0, half)`` of the
+    batch's steps in order, rank 1 the same offsets from ``half`` on
+    (past ``total``: nothing to store).  Cluster c takes one contiguous
+    range, cut into segments wherever either rank starts an image-strip,
+    so that both ranks run the same sequence of steps (one multicast
+    weight stream).  The ranges are the longest within the least largest
+    cost at which ``clusters`` of them cover ``[0, half)``: greedy, which
+    is optimal for contiguous ranges.  -> each CTA's ``(position,
+    steps)`` segments."""
+    cut = [u % steps == 0 or ((u + half) % steps == 0 and u + half < total)
+           for u in range(half)]
+
+    def deal(limit):
+        runs, start, cost = [], 0, 0
+        for u in range(half):
+            add = 3 if u == start or cut[u] else 2
+            if cost + add > limit:
+                runs.append((start, u))
+                start, cost = u, 3
+            else:
+                cost += add
+        return runs + [(start, half)]
+
+    lo, hi = 3, 3 * half
+    while lo < hi:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if len(deal(mid)) <= clusters else (mid + 1, hi)
+    per = []
+    for a, e in deal(lo):
+        edges = [a] + [u for u in range(a + 1, e) if cut[u]] + [e]
+        per += [[(u + rank * half, v - u) for u, v in zip(edges, edges[1:])]
+                for rank in range(CLUSTER)]
+    return per
+
+
+def _equal(bsz: int, strips: int, steps: int, clusters: int) -> list:
+    """Segments of one length n that cover each image-strip, dealt to
+    the CTAs in turn, n minimising (turns) x (2 n + 1): at a few shapes
+    and cluster counts its busiest CTA runs fewer steps than under runs
+    (past the last image-strip: nothing to store)."""
+    def turns(n):
+        items = -(-bsz * strips * -(-steps // n) // CLUSTER) * CLUSTER
+        return -(-items // (CLUSTER * clusters)), items
+
+    n = min(range(1, steps + 1), key=lambda n: turns(n)[0] * (2 * n + 1))
+    segs, items = -(-steps // n), turns(n)[1]
+    per = [[] for _ in range(CLUSTER * clusters)]
+    for i in range(items):
+        g, k = divmod(i, segs)
+        per[i % len(per)].append((g * steps + k * n, n))
+    return per
+
+
 @functools.lru_cache(maxsize=None)
 def rcab_schedule(bsz: int, h: int, w: int,
-                  clusters: int = 66) -> ResblockSchedule:
-    """The kernel's decomposition, ``resblock_schedule``'s line mode with
-    steps of :data:`STEP_ROWS` rows (two per consumer warpgroup): CTA i
-    owns image ``i // (strips * segs)``, strip ``i % strips`` (62 output
-    columns) and segment ``(i // strips) % segs`` of ``rows`` rows, a
-    multiple of 4; it runs ``rows / 4 + 1`` conv1 and ``rows / 4`` conv2
-    steps.  The rows per segment minimise (waves of ``2 clusters`` CTAs)
-    x (conv1 steps), ties going to longer segments.  The pooled partials
-    are one per CTA that owns pixels, ``strips * segs`` per image."""
-    strips = -(-w // STRIP_OUT)
-    slots = CLUSTER * max(1, clusters)
-    best = None
-    for rows in range(STEP_ROWS, -(-h // STEP_ROWS) * STEP_ROWS + 1,
-                      STEP_ROWS):
-        segs = -(-h // rows)
-        ctas = -(-bsz * strips * segs // CLUSTER) * CLUSTER
-        cost = -(-ctas // slots) * (rows // STEP_ROWS + 1)
-        if best is None or cost <= best[0]:
-            best = (cost, ResblockSchedule(rows, strips, segs, ctas))
-    return best[1]
+                  clusters: int = 66) -> RcabSchedule:
+    """The schedule of ``fused_rcab`` on ``[bsz, h, w]`` with ``clusters``
+    clusters running at once (the H100: 66, one CTA per SM): of the
+    cluster runs (:func:`_runs`, rank 1 from the batch's middle or from
+    its middle image-strip) and equal segments (:func:`_equal`), the one
+    whose busiest CTA runs the fewest steps."""
+    clusters = max(1, clusters)
+    strips, steps = -(-w // STRIP_OUT), -(-h // STEP_ROWS)
+    total = bsz * strips * steps
+    halves = dict.fromkeys((-(-bsz * strips // CLUSTER) * steps,
+                            -(-total // CLUSTER)))
+    per = min([_runs(total, steps, half, clusters) for half in halves]
+              + [_equal(bsz, strips, steps, clusters)],
+              key=lambda per: max(map(_cost, per)))
+    per += [[] for _ in range(CLUSTER * clusters - len(per))]
+    images = {}
+    for i, segs in enumerate(per):
+        for k, (q, _) in enumerate(segs):
+            if q < total:
+                images.setdefault(q // (strips * steps), []).append((q, i, k))
+    rows = max(map(len, images.values()))
+    place = {}
+    for items in images.values():
+        for row, (_, i, k) in enumerate(sorted(items)):
+            place[i, k] = (row, rows - 1 - row if row == len(items) - 1 else 0)
+    return RcabSchedule(
+        len(per), strips, steps, rows, max(map(_cost, per)),
+        tuple(tuple((q // steps, q % steps, n, *place.get((i, k), (0, 0)))
+                    for k, (q, n) in enumerate(segs))
+              for i, segs in enumerate(per)))
+
+
+def rcab_work(bsz: int, h: int, w: int, clusters: int = 66
+              ) -> Tuple[int, int, int, int, int]:
+    """``(ctas, waves, critical_steps, computed_steps, useful_steps)`` of
+    one launch, in 4-row conv steps of one CTA (a conv1 or a conv2 over
+    4 x 64 pixels): the CTAs and waves of :func:`rcab_schedule` on
+    ``clusters`` clusters, the steps of its busiest CTA, the steps all
+    CTAs run (hidden-ring fills and rows past the image included), and
+    the steps the batch needs (one conv1 and one conv2 per image-strip
+    and step)."""
+    s = rcab_schedule(bsz, h, w, clusters)
+    computed = sum(2 * seg[2] + 1 for segs in s.segments for seg in segs)
+    return (s.ctas, -(-s.ctas // (CLUSTER * max(1, clusters))), s.critical,
+            computed, 2 * bsz * s.strips * s.steps)
+
+
+@functools.lru_cache(maxsize=None)
+def _segment_table(bsz: int, h: int, w: int, clusters: int,
+                   device: torch.device) -> torch.Tensor:
+    """The schedule as the kernel reads it, int32 on ``device``: CTA i's
+    segments are entries ``[t[i], t[i + 1])`` of the 5-int entries after
+    the ``ctas + 1`` offsets."""
+    s = rcab_schedule(bsz, h, w, clusters)
+    offsets = [0, *itertools.accumulate(map(len, s.segments))]
+    flat = [v for segs in s.segments for seg in segs for v in seg]
+    return torch.tensor(offsets + flat, dtype=torch.int32).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -183,6 +304,7 @@ def fused_rcab(h: torch.Tensor, r: Optional[torch.Tensor],
 
 
 fused_rcab.launches = 0
+fused_rcab.waves = 0
 
 
 @torch.library.custom_op("pesr::fused_rcab", mutates_args=(),
@@ -199,15 +321,18 @@ def _rcab_op(h: torch.Tensor, r: Optional[torch.Tensor],
 
 @_rcab_op.register_kernel("cuda")
 def _rcab_cuda(h, r, pool, wd, bd, wu, bu, w1, b1, w2, b2):
-    """One launch of the kernel, counted in ``fused_rcab.launches``."""
+    """One launch of the kernel, counted in ``fused_rcab.launches`` (and
+    its waves of CTAs in ``fused_rcab.waves``)."""
     sq = (wd, bd, wu, bu)
     _check("fused_rcab", h, r, pool, sq,
            zip(("w1", "b1", "w2", "b2"), (w1, b1, w2, b2)))
     bsz, hh, ww, c = h.shape
-    sched = rcab_schedule(bsz, hh, ww, _max_clusters(h.device))
+    clusters = _max_clusters(h.device)
+    sched = rcab_schedule(bsz, hh, ww, clusters)
+    table = _segment_table(bsz, hh, ww, clusters, h.device)
     x, rn = torch.empty_like(h), torch.empty_like(h)
-    pool_new = torch.empty((bsz, sched.strips * sched.segs, c),
-                           dtype=torch.float32, device=h.device)
+    pool_new = torch.empty((bsz, sched.pool_rows, c), dtype=torch.float32,
+                           device=h.device)
     fn = build.c_function("rcab", "pesr_fused_rcab", _RCAB_ARGS)
     rc = fn(h.data_ptr(), None if r is None else r.data_ptr(),
             None if r is None else pool.data_ptr(),
@@ -215,12 +340,13 @@ def _rcab_cuda(h, r, pool, wd, bd, wu, bu, w1, b1, w2, b2):
             *(t.data_ptr() for t in sq), wd.shape[0],
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             x.data_ptr(), rn.data_ptr(), pool_new.data_ptr(), bsz, hh, ww, c,
-            sched.rows, sched.strips, sched.segs, sched.ctas,
+            sched.strips, sched.pool_rows, sched.ctas, table.data_ptr(),
             torch.cuda.current_stream(h.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_rcab kernel launch failed: CUDA error {rc} "
                            f"at h {tuple(h.shape)}")
     fused_rcab.launches += 1
+    fused_rcab.waves += -(-sched.ctas // (CLUSTER * clusters))
     return x, rn, pool_new
 
 
@@ -229,9 +355,8 @@ def _rcab_fake(h, r, pool, wd, bd, wu, bu, w1, b1, w2, b2):
     """Shapes and dtypes of the outputs (the pooled partials as the
     kernel's schedule at 66 clusters gives them)."""
     bsz, hh, ww, c = h.shape
-    sched = rcab_schedule(bsz, hh, ww)
     return (torch.empty_like(h), torch.empty_like(h),
-            h.new_empty((bsz, sched.strips * sched.segs, c),
+            h.new_empty((bsz, rcab_schedule(bsz, hh, ww).pool_rows, c),
                         dtype=torch.float32))
 
 

@@ -270,27 +270,112 @@ def test_attention_faults_fail_the_cells_limits(fault):
     assert held == (fault is None), numbers
 
 
-def test_schedule_is_the_line_mode_in_steps_of_four_rows():
-    """The cell's tile batch [8, 144, 342] (4 positions of a 510 x 336
-    photo batch): 6 strips x 5 segments of 32 rows, 240 CTAs in two waves
-    of 132, 30 pooled partials per image.  Every shape: segments of a
-    multiple of 4 rows that cover the image, strips of 62 columns, an
-    even number of CTAs (clusters of 2), and no segment length of fewer
-    waves x steps."""
-    s = K.rcab_schedule(8, 144, 342)
-    assert tuple(s) == (32, 6, 5, 240, 0)
-    for shape in ((8, 144, 342), (2, 37, 70), (1, 2, 2), (3, 9, 130),
-                  (8, 72, 516)):
-        b, h, w = shape
-        s = K.rcab_schedule(*shape)
-        assert s.span == 0 and s.rows % 4 == 0 and s.ctas % 2 == 0
-        assert s.strips == -(-w // 62) and s.segs == -(-h // s.rows)
-        assert s.ctas >= b * s.strips * s.segs and s.segs * s.rows < h + s.rows
+def _parent_critical(b, h, w, clusters=66):
+    """Steps of the busiest CTA slot under equal segments, one per CTA:
+    ``rows`` (a multiple of 4) minimising (waves of ``2 clusters`` CTAs)
+    x (rows / 4 + 1), ties to longer segments; waves x (rows / 4 + 1
+    conv1 + rows / 4 conv2 steps)."""
+    strips, best = -(-w // 62), None
+    for rows in range(4, -(-h // 4) * 4 + 1, 4):
+        ctas = -(-b * strips * -(-h // rows) // 2) * 2
+        waves = -(-ctas // (2 * clusters))
+        if best is None or waves * (rows // 4 + 1) <= best[0]:
+            best = (waves * (rows // 4 + 1), waves * (2 * (rows // 4) + 1))
+    return best[1]
 
-        def cost(rows):
-            ctas = -(-b * s.strips * -(-h // rows) // 2) * 2
-            return -(-ctas // 132) * (rows // 4 + 1)
-        assert cost(s.rows) == min(cost(r) for r in range(4, h + 4, 4))
+
+@pytest.mark.parametrize("shape", [
+    (8, 144, 342, 66), (2, 37, 70, 66), (1, 2, 2, 66), (3, 9, 130, 66),
+    (8, 72, 516, 66), (3, 139, 300, 66), (1, 103, 553, 60), (7, 53, 200, 5)],
+    ids=lambda s: "x".join(map(str, s)))
+def test_schedule_is_one_wave_of_runs_in_steps_of_four_rows(shape):
+    """Every (image, strip, 4-row step) of the batch is covered exactly
+    once; the two CTAs of each cluster run segments of the same lengths;
+    the CTAs are one wave of the clusters; the busiest CTA runs no more
+    steps than equal segments in waves would; and the pooled partials, as
+    a plain emulation of the kernel writes them (a row per segment, zeros
+    in the rows after an image's last), fill every row once and add up to
+    the tile's sums per image.  (3, 139, 300): odd B, ragged, runs that
+    cross strips and images; (1, 103, 553) on 60 clusters: equal
+    segments win."""
+    b, h, w, clusters = shape
+    s = K.rcab_schedule(b, h, w, clusters)
+    assert s.ctas == len(s.segments) == 2 * clusters
+    assert (s.strips, s.steps) == (-(-w // 62), -(-h // 4))
+    assert K.rcab_work(b, h, w, clusters)[:3] == (s.ctas, 1, s.critical)
+    count = np.zeros((b * s.strips, s.steps), int)
+    for segs in s.segments:
+        for g, j0, n, _, _ in segs:
+            assert n >= 1 and 0 <= j0 < s.steps
+            if g < b * s.strips:
+                count[g, j0:j0 + n] += 1
+    assert (count == 1).all()
+    for c in range(clusters):
+        assert ([n for _, _, n, _, _ in s.segments[2 * c]]
+                == [n for _, _, n, _, _ in s.segments[2 * c + 1]])
+    steps = [sum(2 * n + 1 for _, _, n, _, _ in segs) for segs in s.segments]
+    assert s.critical == max(steps) <= _parent_critical(b, h, w, clusters)
+    g = torch.Generator().manual_seed(b * h * w)
+    r = torch.randn(b, h, w, 3, generator=g, dtype=torch.float64)
+    pool = torch.zeros(b, s.pool_rows, 3, dtype=torch.float64)
+    written = np.zeros((b, s.pool_rows), int)
+    for segs in s.segments:
+        for g, j0, n, row, fill in segs:
+            i, k = divmod(g, s.strips)
+            if i < b:
+                pool[i, row] = r[i, 4 * j0:4 * (j0 + n),
+                                 62 * k:62 * k + 62].sum((0, 1))
+                written[i, row:row + fill + 1] += 1
+    assert (written == 1).all()
+    assert torch.allclose(pool.sum(1), r.sum((1, 2)), rtol=1e-12, atol=1e-9)
+    if shape[:3] == (3, 139, 300):
+        images = [{g // s.strips for g, *_ in segs if g < b * s.strips}
+                  for segs in s.segments]
+        strips = [{g for g, *_ in segs if g < b * s.strips}
+                  for segs in s.segments]
+        assert max(map(len, images)) > 1 and max(map(len, strips)) > 1
+
+
+def test_schedule_at_the_cells_tile_is_one_wave():
+    """The cell's tile batch [8, 144, 342] (4 positions of a 510 x 336
+    photo batch) on the H100's 66 clusters: 132 CTAs in one wave, the
+    busiest running 29 steps of 4 rows, against 34 for 240 CTAs of equal
+    32-row segments in two waves of 132; 22 pooled partials per image;
+    3,626 steps run for the 3,456 the tile needs."""
+    s = K.rcab_schedule(8, 144, 342)
+    assert (s.ctas, s.strips, s.steps, s.pool_rows, s.critical) == \
+        (132, 6, 36, 22, 29)
+    assert _parent_critical(8, 144, 342) == 34
+    assert K.rcab_work(8, 144, 342) == (132, 1, 29, 3626, 3456)
+
+
+def test_schedule_never_loses_to_equal_segments():
+    """At 300 seeded shapes and cluster counts, the busiest CTA runs no
+    more steps than under equal segments in waves."""
+    rng = np.random.default_rng(23)
+    for _ in range(300):
+        b, h, w = (int(v) for v in rng.integers(1, (9, 160, 400)))
+        clusters = int(rng.choice([1, 2, 5, 33, 60, 66]))
+        assert (K.rcab_schedule(b, h, w, clusters).critical
+                <= _parent_critical(b, h, w, clusters)), (b, h, w, clusters)
+
+
+def test_waves_counter_resets_with_the_launch_counts():
+    """``fused_rcab.waves`` counts CUDA launches' waves only (the plain
+    version on the CPU adds none); ``reset_launch_counts`` zeroes it and
+    ``launch_counts()`` keeps its four keys."""
+    K.fused_rcab.waves = K.fused_rcab.launches = 3
+    kernels.reset_launch_counts()
+    assert K.fused_rcab.waves == 0
+    assert set(kernels.launch_counts()) == {
+        "fused_resblock", "fused_upsampler_stage", "fused_rcab",
+        "rcab_excite"}
+    g = torch.Generator().manual_seed(4)
+    convs = pack_resblock(*(torch.randn(64, 64, 3, 3, generator=g) / 24,
+                            torch.zeros(64)) * 2)
+    h = torch.randn(1, 5, 7, 64, generator=g).bfloat16()
+    K.fused_rcab(h, None, None, *K.pack_squeeze(*_squeeze()), *convs)
+    assert K.fused_rcab.waves == 0 and K.fused_rcab.launches == 0
 
 
 def test_cli_arch_rcan_on_the_cpu(tmp_path, capsys):
@@ -317,11 +402,12 @@ def test_cli_arch_rcan_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(8, 144, 342), (2, 37, 70), (3, 9, 130),
-                                   (1, 2, 2)])
+                                   (1, 2, 2), (3, 139, 300)])
 def test_fused_rcab_kernel_is_its_plain_version(shape):
     """On a card, C = 64: ``x`` within one bf16 ulp of ``h + s r`` (``s``
     is summed in another order), ``r`` within bf16's rounding of float32
-    math on the same operands, the pooled partials' sum within 1e-4."""
+    math on the same operands, the pooled partials' sum within 1e-4, one
+    wave a launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
@@ -338,8 +424,10 @@ def test_fused_rcab_kernel_is_its_plain_version(shape):
     rr = torch.randn(b, h, w, 64, generator=g, device=dev).bfloat16()
     pool = torch.randn(b, 3, 64, generator=g, device=dev) * h * w / 3
     for prev in (False, True):
+        waves = K.fused_rcab.waves
         x, rn, pn = K.fused_rcab(hh, rr if prev else None,
                                  pool if prev else None, *sq, *convs)
+        assert K.fused_rcab.waves == waves + 1
         want_x = K.excite_reference(hh, rr, pool, *sq) if prev else hh
         s = K.squeeze_excite(pool, h * w, *sq)[:, None, None]
         tol = (hh.float().abs() + (s * rr.float()).abs()) * 2 ** -7
